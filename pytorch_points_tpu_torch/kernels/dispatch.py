@@ -1,0 +1,36 @@
+"""Implementation dispatch: the CUDA kernel for CUDA tensors, the plain
+PyTorch version for CPU tensors.
+
+Every public op takes ``impl`` in {"auto", "cuda", "torch"}:
+
+* "auto" resolves to "cuda" for a CUDA tensor and to "torch" for a CPU
+  tensor;
+* "cuda" on a CPU tensor raises;
+* "torch" runs the plain version wherever the tensor lies. It is the only
+  way from a CUDA tensor to the plain version (used to hold the kernels
+  against their plain versions on the card).
+"""
+
+from __future__ import annotations
+
+import torch
+
+IMPLS = ("auto", "cuda", "torch")
+
+
+def resolve(impl: str, x: torch.Tensor, op: str) -> str:
+    """Resolve ``impl`` for ``op`` applied to tensor ``x``."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "auto":
+        impl = "cuda" if x.is_cuda else "torch"
+    if impl == "cuda":
+        from pytorch_points_tpu_torch.kernels import AVAILABLE
+
+        if not x.is_cuda:
+            raise ValueError(
+                f"{op}: impl='cuda' needs a CUDA tensor, got one on {x.device}"
+            )
+        if op not in AVAILABLE:
+            raise NotImplementedError(f"{op}: no CUDA kernel yet")
+    return impl

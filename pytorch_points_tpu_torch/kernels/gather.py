@@ -1,0 +1,49 @@
+"""Row gather (kernel K3).
+
+CUDA kernel: ``csrc/gather.cu``, which replaces the TPU kernel
+``pytorch_points_tpu/kernels/gather.py::_gather_kernel_t`` (``gather_rows_t``).
+The header note there says what bounds it on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pytorch_points_tpu_torch.kernels import _build, dispatch
+
+
+def gather_rows_torch(features: torch.Tensor, idx: torch.Tensor):
+    """Plain version: [B,N,C], [B,K] -> [B,K,C], out[b,k] = f[b,idx[b,k]]."""
+    b, k = idx.shape
+    return features.gather(
+        1, idx.long()[..., None].expand(b, k, features.shape[-1])
+    )
+
+
+def gather_rows_cuda(features: torch.Tensor, idx: torch.Tensor):
+    """Launch the CUDA kernel: same contract as :func:`gather_rows_torch`
+    for float32 features. Indices must lie in [0, N)."""
+    b, n, c = features.shape
+    k = idx.shape[1]
+    _build.require(features, "gather features", torch.float32, (b, n, c))
+    _build.require(idx, "gather idx", torch.int32, (b, k))
+    out = torch.empty((b, k, c), dtype=torch.float32, device=features.device)
+    err = _build.library().ppt_gather_rows(
+        features.data_ptr(), idx.data_ptr(), b, n, k, c, out.data_ptr(),
+        _build.stream(features),
+    )
+    _build.check(err, "ppt_gather_rows")
+    gather_rows_cuda.launches += 1
+    return out
+
+
+gather_rows_cuda.launches = 0
+
+
+def gather_rows(features: torch.Tensor, idx: torch.Tensor,
+                impl: str = "auto"):
+    """[B,N,C] features, [B,K] indices -> [B,K,C], exact."""
+    if dispatch.resolve(impl, features, "gather") == "cuda":
+        return gather_rows_cuda(features.contiguous(),
+                                idx.to(torch.int32).contiguous())
+    return gather_rows_torch(features, idx)
