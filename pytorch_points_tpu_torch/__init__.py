@@ -11,3 +11,12 @@ This package imports ``torch`` and never ``jax``, ``flax`` or
 """
 
 __version__ = "0.1.0"
+
+from pytorch_points_tpu_torch.ops import (  # noqa: E402
+    chamfer_distance,
+    chamfer_path,
+    nndistance,
+    scatter_add,
+)
+
+__all__ = ["chamfer_distance", "chamfer_path", "nndistance", "scatter_add"]

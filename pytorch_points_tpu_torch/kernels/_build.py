@@ -3,10 +3,11 @@
 The kernels have a plain C interface: pointers and the stream travel as
 ``c_void_p``, sizes as ``c_int``, and every entry point returns
 ``cudaGetLastError()`` after its launch, which :func:`check` turns into an
-exception. nvcc compiles them at first use, into
-``build/pytorch_points_tpu_torch/`` beside the package, keyed by a hash of
-the sources and flags, so a second process reuses the build. A failed build
-raises; nothing falls back to the plain versions.
+exception. nvcc compiles them at first use, one process per source, all
+started together, then links them, into ``build/pytorch_points_tpu_torch/``
+beside the package, keyed by a hash of the sources and flags, so a second
+process reuses the build. A failed build raises; nothing falls back to the
+plain versions.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "pytorch_points_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -37,6 +38,14 @@ _SIGNATURES = {
     "ppt_gather_rows": [_P, _P, _I, _I, _I, _I, _P, _P],
     # qry, sup, b, nq, ns, k, out_d, out_i, stream
     "ppt_knn": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # updates, order, offsets, rows, c, out, stream
+    "ppt_scatter_rows": [_P, _P, _P, _I, _I, _P, _P],
+    # p, q, b, n, m, out_d, out_i, stream
+    "ppt_nn_dense": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # ps, qsub, centers, b, ni, mq, tb, tbq, out, stream
+    "ppt_nn_band": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    # ps, qs, qid, cand, b, ni, nj, tn, tm, out_d, out_i, stream
+    "ppt_nn_resident": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 
@@ -51,6 +60,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side and wait for all of them; raise with
+    the output of the first that failed. On any error, those still running
+    are killed."""
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+        outs = [proc.communicate()[0] for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
@@ -62,15 +92,19 @@ def library() -> ctypes.CDLL:
     so = BUILD_DIR / f"libppt_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                f"{res.stdout}{res.stderr}"
-            )
-        os.replace(tmp, so)
+        nvcc = _nvcc()
+        try:
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                      for src, o in zip(sources, objs)])
+            _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                       *map(str, objs)]])
+            os.replace(tmp, so)
+        finally:
+            for f in (*objs, tmp):
+                f.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -91,7 +125,8 @@ def check(err: int, name: str) -> None:
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,
             shape: tuple) -> None:
     """Check a kernel argument: CUDA, dtype, shape (None = any), contiguous,
-    and no gradient expected (the kernels are forward-only)."""
+    and no gradient expected: the kernels are forward-only, and gradients
+    come from the ops' autograd Functions, which pass detached tensors."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -105,8 +140,9 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name}: expected a contiguous tensor")
     if t.requires_grad and torch.is_grad_enabled():
         raise RuntimeError(
-            f"{name}: the CUDA kernels are forward-only; run under "
-            "torch.no_grad()/inference_mode() or use impl='torch'"
+            f"{name}: the CUDA kernels are forward-only; call the op in "
+            "pytorch_points_tpu_torch.ops (an autograd Function), or run "
+            "under torch.no_grad()/inference_mode()"
         )
 
 

@@ -90,7 +90,7 @@ class PointNetFPModule(nn.Module):
             dist, idx = three_nn(xyz_hi, xyz_lo, known_mask=lo_mask,
                                  impl=impl)
             interp = three_interpolate(feat_lo, idx,
-                                       interpolation_weights(dist))
+                                       interpolation_weights(dist), impl)
         if feat_hi is not None:
             interp = torch.cat([feat_hi, interp], dim=-1)
         return self.mlp(interp)

@@ -2,7 +2,9 @@
 
 ``PointCloudAutoencoder`` is the flagship: FPS + grouping through SA layers
 down to a global code, FP layers (three_nn + three_interpolate) back up, and
-a coordinate head. This slice serves its forward pass; training comes later.
+a coordinate head. It serves (forward) and trains: every op on its path is
+a ``torch.autograd.Function`` with the reference's backward rule
+(``parallel/data_parallel.py`` builds the train step).
 """
 
 from __future__ import annotations

@@ -1,3 +1,8 @@
+from pytorch_points_tpu_torch.ops.chamfer import (
+    chamfer_distance,
+    chamfer_path,
+    nndistance,
+)
 from pytorch_points_tpu_torch.ops.grouping import (
     ball_query,
     group_all,
@@ -14,10 +19,13 @@ from pytorch_points_tpu_torch.ops.sampling import (
     furthest_point_sample,
     furthest_point_sample_and_gather,
     gather_points,
+    scatter_add,
 )
 
 __all__ = [
     "ball_query",
+    "chamfer_distance",
+    "chamfer_path",
     "furthest_point_sample",
     "furthest_point_sample_and_gather",
     "gather_points",
@@ -25,7 +33,9 @@ __all__ = [
     "group_points",
     "interpolation_weights",
     "knn",
+    "nndistance",
     "sample_and_group",
+    "scatter_add",
     "three_interpolate",
     "three_nn",
 ]

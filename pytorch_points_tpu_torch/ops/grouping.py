@@ -7,7 +7,12 @@ Reference semantics:
   * ball query: the first ``nsample`` support points (in index order)
     strictly within ``radius`` of each query; rows with fewer hits repeat
     the first hit; rows with zero hits are all zero.
-  * group_points: gather features at a [B, P, S] index tensor.
+  * group_points: gather features at a [B, P, S] index tensor; backward
+    is a scatter-add (kernel K4).
+
+Indices carry no gradient: the searches run on detached clouds. kNN
+distances are differentiable in both clouds with the neighbour set held
+constant, as the reference's ``custom_vjp`` has it.
 """
 
 from __future__ import annotations
@@ -19,7 +24,41 @@ from pytorch_points_tpu_torch.kernels import ballquery, topk_scan
 from pytorch_points_tpu_torch.kernels.gather import gather_rows
 from pytorch_points_tpu_torch.ops.sampling import (
     furthest_point_sample_and_gather,
+    gather_points,
 )
+from pytorch_points_tpu_torch.ops.scatter_impl import scatter_add_auto
+
+
+class _Knn(torch.autograd.Function):
+    """Forward: exact kNN (K8) on the detached clouds. Backward, with the
+    neighbour set constant: the direct term into the queries and a
+    scatter-add (K4) into the support."""
+
+    @staticmethod
+    def forward(ctx, query, support, k, impl):
+        query, support = query.detach(), support.detach()
+        dist, idx = topk_scan.knn(query, support, k, impl=impl)
+        ctx.save_for_backward(query, support, idx)
+        ctx.impl = impl
+        ctx.mark_non_differentiable(idx)
+        return dist, idx
+
+    @staticmethod
+    def backward(ctx, gd, _):
+        query, support, idx = ctx.saved_tensors
+        b, nq, k = idx.shape
+        flat = idx.reshape(b, nq * k)
+        sel = gather_rows(support, flat, ctx.impl)
+        diff = query[:, :, None, :] - sel.reshape(b, nq, k, -1)
+        gq = gs = None
+        if ctx.needs_input_grad[0]:
+            gq = (2.0 * gd[..., None] * diff).sum(dim=2)
+        if ctx.needs_input_grad[1]:
+            gs = scatter_add_auto(
+                flat, (-2.0 * gd[..., None] * diff).reshape(b, nq * k, -1),
+                support.shape[1], ctx.impl,
+            )
+        return gq, gs, None, None
 
 
 def knn(query: torch.Tensor, support: torch.Tensor, k: int,
@@ -29,9 +68,11 @@ def knn(query: torch.Tensor, support: torch.Tensor, k: int,
     [B,Nq,3], [B,Ns,3] -> (dist [B,Nq,k] squared ascending, idx [B,Nq,k]
     int32). Invalid support points (``support_mask`` False) are poisoned
     far away and never returned while the cloud has >= k valid points.
+    Differentiable in ``dist`` wrt both clouds, the neighbour set held
+    constant.
     """
     support = poison_points(support, support_mask, sign=-1.0)
-    return topk_scan.knn(query, support, k, impl=impl)
+    return _Knn.apply(query, support, k, impl)
 
 
 def ball_query(xyz: torch.Tensor, centroids: torch.Tensor, radius: float,
@@ -42,16 +83,18 @@ def ball_query(xyz: torch.Tensor, centroids: torch.Tensor, radius: float,
 
     [B,N,3] support, [B,P,3] centres -> (idx [B,P,nsample] int32, cnt [B,P]
     int32 hit counts capped at nsample). ``mask``: [B,N] support validity.
+    Runs on the detached clouds: the indices carry no gradient.
     """
-    return ballquery.ball_query(xyz, centroids, radius, nsample, mask,
-                                impl=impl)
+    return ballquery.ball_query(xyz.detach(), centroids.detach(), radius,
+                                nsample, mask, impl=impl)
 
 
 def group_points(features: torch.Tensor, idx: torch.Tensor,
                  impl: str = "auto"):
-    """[B,N,C] features, [B,P,S] indices -> [B,P,S,C]."""
+    """[B,N,C] features, [B,P,S] indices -> [B,P,S,C]; backward is a
+    deterministic scatter-add into the N axis."""
     b, p, s = idx.shape
-    g = gather_rows(features, idx.reshape(b, p * s), impl)
+    g = gather_points(features, idx.reshape(b, p * s), impl)
     return g.reshape(b, p, s, features.shape[-1])
 
 

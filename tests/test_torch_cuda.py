@@ -7,21 +7,34 @@ it; from the repository root on the card:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 (``--noconftest`` skips tests/conftest.py, which sets up JAX.) The bar is
-the kernels' contract: indices identical and values bitwise equal.
+the kernels' contract: indices identical and values bitwise equal; the scatter (K4) sums in ascending k, so it
+equals its plain version run on the CPU bitwise.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from pytorch_points_tpu_torch.kernels import ballquery, fps, gather, topk_scan
+from pytorch_points_tpu_torch.kernels import (
+    ballquery,
+    distance_tiles,
+    fps,
+    gather,
+    nn_sorted,
+    scatter,
+    topk_scan,
+)
 from pytorch_points_tpu_torch.models import PointCloudAutoencoder
+from pytorch_points_tpu_torch.parallel import reconstruction_loss
 from torch_inputs import (
     FPS_CASES,
+    SCATTER_CASES,
     autoencoder_inputs,
     bq_inputs,
     cloud,
     fps_inputs,
+    nn_inputs,
+    scatter_inputs,
 )
 
 pytestmark = pytest.mark.cuda
@@ -111,3 +124,73 @@ def test_autoencoder_cuda_matches_plain(dev):
             got = model(x, mk, impl="cuda")
             ref = model(x, mk, impl="torch")
             torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", sorted(SCATTER_CASES))
+def test_scatter_cuda_matches_plain(dev, case):
+    idx, upd, n = scatter_inputs(case)
+    cpu = scatter.scatter_add(torch.from_numpy(idx), torch.from_numpy(upd), n)
+    i, u = _on(dev, idx, upd)
+    got = scatter.scatter_add(i, u, n, impl="cuda")
+    again = scatter.scatter_add(i, u, n, impl="cuda")
+    ref = scatter.scatter_add(i, u, n, impl="torch")  # atomics on the card
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), cpu)
+    # Against the atomics, the bound of two f32 summation orders of a row's
+    # k updates: 2 k 2^-24 sum|u|.
+    count = scatter.scatter_add(i, torch.ones_like(u), n, impl="torch")
+    bound = 2 * count * 2.0**-24 * scatter.scatter_add(i, u.abs(), n,
+                                                        impl="torch")
+    assert ((got - ref).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("kind", ["random", "masked", "grid"])
+def test_nn_dense_cuda_matches_plain(dev, kind):
+    p, q = _on(dev, *nn_inputs(kind, 600, 700))
+    with torch.inference_mode():
+        got = distance_tiles.nn_both_directions(p, q, impl="cuda")
+        ref = distance_tiles.nn_both_directions(p, q, impl="torch")
+    _assert_same(got, ref)
+
+
+@pytest.mark.parametrize("n,m", [(600, 700), (1024, 300), (4096, 4096)])
+@pytest.mark.parametrize("kind", ["random", "grid"])
+def test_nn_sorted_cuda_matches_plain_and_dense(dev, n, m, kind):
+    p, q = _on(dev, *nn_inputs(kind, n, m))
+    with torch.inference_mode():
+        got = nn_sorted.nndistance_indexed(p, q, impl="cuda")
+        ref = nn_sorted.nndistance_indexed(p, q, impl="torch")
+        dense = distance_tiles.nn_both_directions(p, q, impl="cuda")
+        sums = nn_sorted.nndistance_sums(p, q, impl="cuda")
+        sums_ref = nn_sorted.nndistance_sums(p, q, impl="torch")
+    _assert_same(got, ref)
+    _assert_same(got, dense)
+    _assert_same(sums[2:], sums_ref[2:])
+    torch.testing.assert_close(sums[:2], sums_ref[:2], rtol=1e-6, atol=0)
+
+
+def test_nn_band_cuda_matches_plain(dev):
+    p, q = _on(dev, *nn_inputs("random", 2048, 1536))
+    ps, _ = nn_sorted.sort_by_morton(p)
+    qs, _ = nn_sorted.sort_by_morton(q)
+    rng = np.random.default_rng(9)
+    (cen,) = _on(dev, rng.integers(0, 3, (2, 4)).astype(np.int32))
+    with torch.inference_mode():
+        for kw in (dict(tbq=128, stride=4), dict(tbq=512), dict(centers=cen)):
+            got = nn_sorted.band_min(ps, qs, impl="cuda", **kw)
+            ref = nn_sorted.band_min(ps, qs, impl="torch", **kw)
+            _assert_same([got], [ref])
+
+
+def test_autoencoder_backward_cuda_matches_plain(dev):
+    xyz, _ = autoencoder_inputs(masked=False)
+    (x,) = _on(dev, xyz)
+    model = PointCloudAutoencoder(npoint1=128, npoint2=32, device=dev)
+    grads = {}
+    for impl in ("cuda", "torch"):
+        model.zero_grad(set_to_none=True)
+        reconstruction_loss(impl=impl)(model, {"points": x}).backward()
+        grads[impl] = [p.grad.clone() for p in model.parameters()]
+    for got, ref in zip(grads["cuda"], grads["torch"]):
+        scale = ref.abs().max().item()
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * scale)

@@ -23,7 +23,12 @@ from pytorch_points_tpu.kernels import gather as jax_gather
 from pytorch_points_tpu.kernels import topk_scan as jax_topk
 from pytorch_points_tpu_torch.core import masking
 from pytorch_points_tpu_torch.kernels import ballquery, dispatch, fps, gather
-from pytorch_points_tpu_torch.kernels import topk_scan
+from pytorch_points_tpu_torch.kernels import (
+    distance_tiles,
+    nn_sorted,
+    scatter,
+    topk_scan,
+)
 from pytorch_points_tpu_torch.ops import grouping
 from torch_inputs import FPS_CASES, bq_inputs, cloud, fps_inputs, valid_mask
 
@@ -157,15 +162,27 @@ def test_dispatch_resolves_by_device():
         dispatch.resolve("pallas", x, "fps")
 
 
-@pytest.mark.parametrize("op", ["fps", "ball_query", "gather", "knn"])
+@pytest.mark.parametrize("op", ["fps", "ball_query", "gather", "knn",
+                                "scatter", "nn_dense", "nn_band",
+                                "nn_resident"])
 def test_cuda_impl_on_cpu_tensor_raises(op):
     x = torch.zeros(1, 8, 3)
     idx = torch.zeros(1, 4, dtype=torch.int32)
+    cloud = torch.zeros(1, 512, 3)
     call = {
         "fps": lambda: fps.furthest_point_sample(x, 2, impl="cuda"),
         "ball_query": lambda: ballquery.ball_query(x, x, 0.1, 4, impl="cuda"),
         "gather": lambda: gather.gather_rows(x, idx, impl="cuda"),
         "knn": lambda: topk_scan.knn(x, x, 3, impl="cuda"),
+        "scatter": lambda: scatter.scatter_add(idx, x[:, :4], 8,
+                                               impl="cuda"),
+        "nn_dense": lambda: distance_tiles.nn_both_directions(x, x,
+                                                              impl="cuda"),
+        "nn_band": lambda: nn_sorted.band_min(cloud, cloud, impl="cuda"),
+        "nn_resident": lambda: nn_sorted.nn_resident(
+            cloud, cloud, idx.new_zeros(1, 512), torch.ones(1, 1, 8,
+                                                            dtype=bool),
+            impl="cuda"),
     }[op]
     with pytest.raises(ValueError, match="CUDA tensor"):
         call()
@@ -177,8 +194,10 @@ def test_port_imports_without_jax():
         "sys.modules['pytorch_points_tpu'] = None\n"
         "import pytorch_points_tpu_torch.models, pytorch_points_tpu_torch.ops\n"
         "import pytorch_points_tpu_torch.compat\n"
+        "import pytorch_points_tpu_torch.parallel\n"
         "from pytorch_points_tpu_torch.kernels import (\n"
-        "    _build, ballquery, dispatch, fps, gather, topk_scan)\n"
+        "    _build, ballquery, dispatch, distance_tiles, fps, gather,\n"
+        "    nn_sorted, scatter, topk_scan)\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
