@@ -19,25 +19,40 @@ Phases, in order; any failure raises and exits non-zero:
    equal, K6 also against K5 on the same clouds; the scatter (K4) within
    the bound of two f32 summation orders of the plain version (which uses
    atomics on the card), bitwise equal across two launches and bitwise
-   exact for a permutation write. Kernel and plain times from CUDA events;
+   exact for a permutation write; the auction (K11) and its JV endgame
+   (K12) with owners and prices bitwise equal, on config 4's normal clouds,
+   gaussian-mixture, tie-grid, padded (N=2000) and masked clouds, both
+   budget ladders, and a small endgame pop cap. Kernel and plain times
+   from CUDA events (a plain version that takes over a second: one call on
+   the host clock);
 3. serve: a full-width PointCloudAutoencoder (random weights from a seeded
    torch.Generator) answers B=16 N=2048 requests, B=32 N=16384 requests and
    masked requests under inference_mode. Every output must be finite and
    match the same model on the plain versions (impl="torch") to 1e-5;
-4. train: the same model, config 5 without its EMD term (chamfer loss, Adam
-   at 1e-3), takes steps at B=16 N=2048. The first step's parameter grads
-   must match the plain versions' within TRAIN_GRAD_TOL of each tensor's
-   largest grad, and every loss must be finite;
+4. train: the same model takes steps at B=16 N=2048 with Adam at 1e-3,
+   first on Chamfer alone (emd_weight=0), then on config 5 in full,
+   Chamfer + 0.1 EMD at EMDLoss's pop cap 384. For each loss the first
+   step's parameter grads must match the plain versions' within
+   TRAIN_GRAD_TOL of each tensor's largest grad, and every loss must be
+   finite;
 5. headline: FPS 16384 -> 2048, ball query (r=0.2, ns=32), group and the
    Morton-pruned chamfer, forward and backward at B=32 (the JAX package's
    graded headline loss); value and grad must match the plain versions, for
-   the loss and for its group term alone (which the loss weighs by 1e-6).
+   the loss and for its group term alone (which the loss weighs by 1e-6);
+6. EMD (config 4): earth_mover_distance on B=32 N=2048 standard-normal
+   clouds, timed; then its excess over the Hungarian optimum (scipy) on 4
+   normal and 4 gaussian-mixture pairs at pop caps 768 and 384. Every
+   assignment must be a permutation with its matched distances, and every
+   pop-768 element within 5% of the optimum;
+7. EMD metrics: coverage_and_mmd(metric="emd") at G=R=16 N=2048, values
+   finite and in range; at a small size, COV/MMD and 1-NNA equal to the
+   plain versions'.
 
-Phases 3-5 are the main paths. Each sets every kernel's launch count to 0
+Phases 3-7 are the main paths. Each sets every kernel's launch count to 0
 just before it runs and reads them just after, and fails if a kernel of its
 path was never launched.
 
-6. profile: one call of each main path, traced with torch.profiler after
+8. profile: one call of each main path, traced with torch.profiler after
    its untraced timing: wall ms, device busy ms and idle share per call,
    and the largest device items. It checks nothing; its launches are not
    counted.
@@ -61,6 +76,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+START = time.perf_counter()
 SEED = 0
 SERVE_TOL = 1e-5
 SLICE = dict(b=16, n=2048)  # the serving path's request shape
@@ -73,6 +89,14 @@ HEAD_GRAD_TOL = 1e-4
 HEAD_GROUP_WEIGHT = 1e-6  # the group term's weight in the headline loss
 SUM_ORDER_EPS = 2.0**-24  # unit roundoff of float32
 PROFILE_TOP = 12
+EMD4 = dict(b=32, n=2048)  # config 4 (bench.py)
+EMD_CALLS, EMD_ORACLE = 10, 4  # timed calls; Hungarian elements per kind
+EMD_EXCESS_BAR = 5.0  # % over the optimum, any element at pop cap 768
+EMD_EPS, EMD_ITERS, EMD_PHASES = 0.005, 15, 3  # the op's defaults
+EMD_HARD = (40, 25, 15)  # the ladder the hardness hint picks
+CONFIG5_EMD = {"endgame_pop_cap": 384}  # EMDLoss's training point
+METRIC = dict(g=16, r=16, n=2048)
+PLAIN_SINGLE_MS = 1000.0  # a plain version this slow is timed in one call
 
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "fps": ("pytorch_points_tpu_torch/csrc/fps.cu",
@@ -91,9 +115,14 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                 "pytorch_points_tpu/kernels/nn_sorted.py:151"),
     "nn_resident": ("pytorch_points_tpu_torch/csrc/nn_sorted.cu",
                     "pytorch_points_tpu/kernels/nn_sorted.py:387"),
+    "auction": ("pytorch_points_tpu_torch/csrc/auction.cu",
+                "pytorch_points_tpu/kernels/auction.py:45"),
+    "augment": ("pytorch_points_tpu_torch/csrc/augment.cu",
+                "pytorch_points_tpu/kernels/auction.py:167"),
 }
 SERVE_KERNELS = ("fps", "ball_query", "gather", "knn")
 TRAIN_KERNELS = (*SERVE_KERNELS, "scatter", "nn_dense")
+EMD_KERNELS = ("auction", "augment")
 HEAD_KERNELS = ("fps", "ball_query", "gather", "scatter", "nn_band",
                 "nn_resident")
 
@@ -137,6 +166,31 @@ def head_pred(rng):
     """The headline's prediction cloud, [B,N,3] f32 inside (-0.97, 0.99)."""
     return (rng.uniform(-1, 1, (HEAD["b"], HEAD["n"], 3)) * 0.98
             + 0.01).astype(np.float32)
+
+
+def normal(rng, b, n):
+    return rng.standard_normal((b, n, 3)).astype(np.float32)
+
+
+def gmm(rng, b, n, k=8, spread=0.15):
+    """Gaussian-mixture (clustered) clouds, as bench.py draws them."""
+    centers = rng.uniform(-1, 1, (b, k, 3))
+    which = rng.integers(0, k, (b, n))
+    return (centers[np.arange(b)[:, None], which]
+            + spread * rng.standard_normal((b, n, 3))).astype(np.float32)
+
+
+def grid64(rng, b, n):
+    """The dyadic grid k/64: every distance exact in f32, many ties."""
+    return (rng.integers(-64, 65, (b, n, 3)) / 64).astype(np.float32)
+
+
+def equal_count_masks(rng, b, n):
+    """Two [B,N] masks, 75-100% valid, with equal valid counts per cloud
+    (EMD's contract) on different subsets."""
+    counts = rng.integers(3 * n // 4, n + 1, b)
+    return [np.stack([np.isin(np.arange(n), rng.permutation(n)[:c])
+                      for c in counts]) for _ in range(2)]
 
 
 def kernel_cases(torch, rng, dev):
@@ -342,6 +396,122 @@ def check_k6_equals_k5(torch, dev):
           f"{sums_ms!r} ms, dense K5 both directions {dense_ms!r} ms")
 
 
+def config4_clouds(torch, dev):
+    """Config 4's input: B=32 N=2048 standard-normal pairs (bench.py)."""
+    rng = np.random.default_rng(SEED + 5)
+    return (torch.from_numpy(normal(rng, **EMD4)).to(dev),
+            torch.from_numpy(normal(rng, **EMD4)).to(dev))
+
+
+def timed_plain(torch, fn):
+    """(outputs, host ms) of one synchronised call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def hold_against_plain(torch, name, label, fn, stats, bound=None):
+    """One kernel call against one plain call, dtype and shape equal: every
+    output bitwise equal or, with a ``bound``, the first within it of the
+    plain version's and bitwise equal across two launches. Then kernel ms
+    from CUDA events, plain ms from CUDA events or, past PLAIN_SINGLE_MS,
+    the one call on the host clock. Returns the kernel's outputs."""
+    got = fn("cuda")
+    ref, plain_ms = timed_plain(torch, lambda: fn("torch"))
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    err = 0.0
+    for g, r in zip(got, ref, strict=True):
+        if g.dtype != r.dtype or g.shape != r.shape:
+            fail(f"{name} [{label}]: {g.dtype}{tuple(g.shape)} vs plain "
+                 f"{r.dtype}{tuple(r.shape)}")
+        if g.dtype.is_floating_point:
+            err = max(err, (g - r).abs().max().item())
+        if bound is None and not torch.equal(g, r):
+            fail(f"{name} [{label}]: kernel differs from plain (max abs err "
+                 f"{err})")
+    if bound is not None:
+        if not ((got[0] - ref[0]).abs() <= bound).all():
+            fail(f"{name} [{label}]: kernel outside the summation-order "
+                 f"bound of plain (max abs err {err})")
+        if not torch.equal(got[0], fn("cuda")):
+            fail(f"{name} [{label}]: two launches differ")
+    verdict = "equal" if bound is None else "within bound, repeatable"
+    ms = cuda_ms(torch, lambda: fn("cuda"))
+    if plain_ms < PLAIN_SINGLE_MS:
+        plain_ms = cuda_ms(torch, lambda: fn("torch"))
+    print(f"{name:11s} {label:46s} {verdict}  max_abs_err={err!r}  kernel "
+          f"{ms!r} ms  plain {plain_ms!r} ms")
+    s = stats[name]
+    s["max_abs_err"] = max(s["max_abs_err"], err)
+    if "ms" not in s:  # the JSON line reports each kernel's 1st case
+        s["ms"], s["plain_ms"] = ms, plain_ms
+    return got
+
+
+def check_emd_kernels(torch, dev, stats):
+    """K11 and K12 against their plain versions, owners and prices bitwise:
+    K11 as earth_mover_distance runs it (the hardness hint on the card,
+    the hard ladder when it holds), K12 on K11's own output."""
+    from pytorch_points_tpu_torch.kernels import auction
+    from pytorch_points_tpu_torch.ops.emd import _poison_rank_matched
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    rng = np.random.default_rng(SEED + 6)
+    b, n = SLICE["b"], SLICE["n"]
+    pm, qm = (t(m) for m in equal_count_masks(rng, b, n))
+    cases = [  # (label, p, q, endgame pop caps to hold K12 at)
+        (f"config 4 B{EMD4['b']} N={EMD4['n']} normal",
+         *config4_clouds(torch, dev), (768,)),
+        (f"B{b} N={n} gaussian mixture", t(gmm(rng, b, n)),
+         t(gmm(rng, b, n)), (384,)),
+        (f"B{b} N={n} tie grid", t(grid64(rng, b, n)), t(grid64(rng, b, n)),
+         ()),
+        (f"B{b} N=2000 padded", t(normal(rng, b, 2000)),
+         t(normal(rng, b, 2000)), (8,)),
+        (f"B{b} N={n} 75-100%-valid equal counts",
+         _poison_rank_matched(t(normal(rng, b, n)), pm),
+         _poison_rank_matched(t(normal(rng, b, n)), qm), (768,)),
+    ]
+    eps_k = auction.phase_schedule(EMD_EPS, EMD_PHASES, 6.0)
+    ladders = ([EMD_ITERS] * EMD_PHASES, list(EMD_HARD))
+    hints = set()
+    for label, p, q, pops in cases:
+        hint = auction._hardness_hint(p, q)
+        hints.add(bool(hint))
+        n_pad = auction._round_up(p.shape[1], 256)
+        pp, qp = auction.pad_twins(p, q, n_pad)
+
+        def k11(impl, pp=pp, qp=qp, hint=hint):
+            run = auction.auction_cuda if impl == "cuda" else (
+                auction.auction_torch)
+            return run(pp, qp, eps_k, ladders, hint, 256, True)
+
+        tag = f"{label}, hint {bool(hint)}"
+        owner, price = hold_against_plain(torch, "auction", tag, k11, stats)
+        left = (owner < 0).sum(1).float()
+        print(f"            stragglers after K11: mean {left.mean().item()!r}"
+              f" max {left.max().item()!r} per cloud")
+        cap = auction.MAX_ROUNDS * min(auction.S_MAX, n_pad)
+        for pop in pops:
+            def k12(impl, owner=owner, price=price, pp=pp, qp=qp, pop=pop):
+                run = auction.augment_cuda if impl == "cuda" else (
+                    auction.augment_torch)
+                return run(owner, price, pp, qp, EMD_EPS, pop, cap)
+
+            done, _ = hold_against_plain(torch, "augment", f"{label}, pop {pop}",
+                                 k12, stats)
+            if not (torch.sort(done, 1).values == torch.arange(
+                    n_pad, device=dev, dtype=torch.int32)).all():
+                fail(f"augment [{label}]: owners are not a permutation")
+    if hints != {False, True}:
+        fail(f"the EMD cases took only hint {hints}: both ladders must run")
+
+
 def phase_kernels(torch, dev):
     print("== phase 2: each kernel vs its plain PyTorch version "
           "(indices identical, values bitwise; the scatter within its "
@@ -352,35 +522,8 @@ def phase_kernels(torch, dev):
         cases = [(*c, None) for c in kernel_cases(torch, rng, dev)]
         cases += training_kernel_cases(torch, rng, dev)
         for name, label, fn, bound in cases:
-            got, ref = fn("cuda"), fn("torch")
-            got = got if isinstance(got, tuple) else (got,)
-            ref = ref if isinstance(ref, tuple) else (ref,)
-            err = 0.0
-            for g, r in zip(got, ref):
-                if g.dtype != r.dtype or g.shape != r.shape:
-                    fail(f"{name} [{label}]: {g.dtype}{tuple(g.shape)} vs "
-                         f"plain {r.dtype}{tuple(r.shape)}")
-                if g.dtype.is_floating_point:
-                    err = max(err, (g - r).abs().max().item())
-                if bound is None and not torch.equal(g, r):
-                    fail(f"{name} [{label}]: kernel differs from plain "
-                         f"(max abs err {err})")
-            if bound is not None:
-                if not ((got[0] - ref[0]).abs() <= bound).all():
-                    fail(f"{name} [{label}]: kernel outside the "
-                         f"summation-order bound of plain (max abs err "
-                         f"{err})")
-                if not torch.equal(got[0], fn("cuda")):
-                    fail(f"{name} [{label}]: two launches differ")
-            verdict = "equal" if bound is None else "within bound, repeatable"
-            ms = cuda_ms(torch, lambda: fn("cuda"))
-            plain_ms = cuda_ms(torch, lambda: fn("torch"))
-            print(f"{name:11s} {label:46s} {verdict}  max_abs_err={err!r}  "
-                  f"kernel {ms!r} ms  plain {plain_ms!r} ms")
-            s = stats[name]
-            s["max_abs_err"] = max(s["max_abs_err"], err)
-            if "ms" not in s:  # the JSON line reports each kernel's 1st case
-                s["ms"], s["plain_ms"] = ms, plain_ms
+            hold_against_plain(torch, name, label, fn, stats, bound)
+        check_emd_kernels(torch, dev, stats)
     check_k6_equals_k5(torch, dev)
     return stats
 
@@ -468,8 +611,8 @@ def phase_serve(torch, dev, wrappers):
         with torch.inference_mode():
             return answer(xyz, mask)
 
-    return launches, {f"serve {tag}": functools.partial(request, tag)
-                      for tag in lat}
+    return [launches], {f"serve {tag}": functools.partial(request, tag)
+                        for tag in lat}
 
 
 def grad_gap(got, ref):
@@ -490,49 +633,62 @@ def phase_train(torch, dev, wrappers):
     )
 
     b, n = SLICE["b"], SLICE["n"]
-    print(f"== phase 4: train the full-width PointCloudAutoencoder, config 5 "
-          f"without EMD (chamfer, Adam lr 1e-3), B={b} N={n}")
-    gen = torch.Generator().manual_seed(SEED)
-    model = PointCloudAutoencoder(NPOINT1, NPOINT2, device=dev, generator=gen)
+    print(f"== phase 4: train the full-width PointCloudAutoencoder, B={b} "
+          f"N={n}, Adam lr 1e-3")
     rng = np.random.default_rng(SEED + 2)
     batches = [{"points": torch.from_numpy(cloud(rng, b, n)).to(dev)}
                for _ in range(TRAIN_STEPS)]
-    first = {}
-    for impl in ("cuda", "torch"):  # the first step's grads, uncounted
+    runs = (("chamfer alone", dict(emd_weight=0), TRAIN_KERNELS),
+            ("config 5, chamfer + 0.1 EMD (pop cap 384)",
+             dict(emd_kwargs=CONFIG5_EMD), (*TRAIN_KERNELS, *EMD_KERNELS)))
+    launches, calls, medians = [], {}, {}
+    for label, kw, required in runs:
+        print(f"-- {label}")
+        gen = torch.Generator().manual_seed(SEED)
+        model = PointCloudAutoencoder(NPOINT1, NPOINT2, device=dev,
+                                      generator=gen)
+        first = {}
+        for impl in ("cuda", "torch"):  # the first step's grads, uncounted
+            model.zero_grad(set_to_none=True)
+            loss = reconstruction_loss(impl=impl, **kw)(model, batches[0])
+            loss.backward()
+            first[impl] = (loss.item(), [p.grad.detach().clone()
+                                         for p in model.parameters()])
+        gap = grad_gap(first["cuda"][1], first["torch"][1])
+        print(f"first step: loss kernels {first['cuda'][0]!r} plain "
+              f"{first['torch'][0]!r}; parameter grads max |kernels - plain|"
+              f" / max |plain| = {gap!r} (bar {TRAIN_GRAD_TOL})")
+        if gap > TRAIN_GRAD_TOL or abs(first["cuda"][0] - first["torch"][0]) \
+                > 1e-6 * abs(first["torch"][0]):
+            fail(f"train ({label}): first-step loss or grads differ from the "
+                 "plain versions")
         model.zero_grad(set_to_none=True)
-        loss = reconstruction_loss(impl=impl)(model, batches[0])
-        loss.backward()
-        first[impl] = (loss.item(),
-                       [p.grad.detach().clone() for p in model.parameters()])
-    gap = grad_gap(first["cuda"][1], first["torch"][1])
-    print(f"first step: loss kernels {first['cuda'][0]!r} plain "
-          f"{first['torch'][0]!r}; parameter grads max |kernels - plain| / "
-          f"max |plain| = {gap!r} (bar {TRAIN_GRAD_TOL})")
-    if gap > TRAIN_GRAD_TOL or abs(first["cuda"][0] - first["torch"][0]) > (
-            1e-6 * abs(first["torch"][0])):
-        fail("train: first-step loss or grads differ from the plain versions")
-    model.zero_grad(set_to_none=True)
-    step = make_train_step(model, torch.optim.Adam(model.parameters(), 1e-3),
-                           reconstruction_loss())
-    losses, times = [], []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
+        step = make_train_step(model,
+                               torch.optim.Adam(model.parameters(), 1e-3),
+                               reconstruction_loss(**kw))
+        losses, times = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
 
-    def train():
-        for batch in batches:
-            t0 = time.perf_counter()
-            losses.append(step(batch).item())  # .item() waits for the card
-            times.append((time.perf_counter() - t0) * 1e3)
+        def train(step=step, losses=losses, times=times):
+            for batch in batches:
+                t0 = time.perf_counter()
+                losses.append(step(batch).item())  # .item() waits for the card
+                times.append((time.perf_counter() - t0) * 1e3)
 
-    launches = drive(wrappers, TRAIN_KERNELS, "train", train)
-    if not np.isfinite(losses).all():
-        fail(f"train: non-finite loss {losses}")
-    print(f"train losses: {losses}")
-    print(f"train median {statistics.median(times)!r} ms/step over "
-          f"{len(times)} steps (first step {times[0]!r} ms); peak device "
-          f"memory {torch.cuda.max_memory_allocated(dev)} bytes")
-    return launches, {f"train step B={b} N={n}":
-                      lambda: step(batches[0]).item()}
+        launches.append(drive(wrappers, required, f"train, {label}", train))
+        if not np.isfinite(losses).all():
+            fail(f"train ({label}): non-finite loss {losses}")
+        medians[label] = statistics.median(times)
+        print(f"train losses: {losses}")
+        print(f"train median {medians[label]!r} ms/step over {len(times)} "
+              f"steps (first step {times[0]!r} ms); peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev)} bytes")
+        calls[f"train step, {label}, B={b} N={n}"] = (
+            lambda step=step: step(batches[0]).item())
+    print("train step medians: " + "; ".join(
+        f"{label} {ms!r} ms" for label, ms in medians.items()))
+    return launches, calls
 
 
 def headline_terms(pred, gt, impl):
@@ -612,7 +768,122 @@ def phase_headline(torch, dev, wrappers):
     print(f"headline median {statistics.median(times)!r} ms per call "
           f"(value and grad) over {len(times)} calls: {times}; peak device "
           f"memory {torch.cuda.max_memory_allocated(dev)} bytes")
-    return launches, {f"headline B={b} N={n} P={p}": call}
+    return [launches], {f"headline B={b} N={n} P={p}": call}
+
+
+def check_assignment(torch, label, p, q, dist, assign):
+    """Every assignment a permutation, dist its matched squared distances
+    (bitwise, in the op's own arithmetic), all finite."""
+    b, n, _ = p.shape
+    if dist.shape != (b, n) or assign.shape != (b, n):
+        fail(f"{label}: shapes {tuple(dist.shape)} {tuple(assign.shape)}")
+    iota = torch.arange(n, device=assign.device, dtype=assign.dtype)
+    if not (torch.sort(assign, 1).values == iota).all():
+        fail(f"{label}: an assignment is not a permutation")
+    diff = p - q.gather(1, assign.long()[..., None].expand(-1, -1, 3))
+    dx, dy, dz = diff.unbind(-1)
+    if not torch.isfinite(dist).all() or not torch.equal(
+            dist, (dx * dx + dy * dy) + dz * dz):
+        fail(f"{label}: dist is not the matched squared distance")
+
+
+def phase_emd(torch, dev, wrappers):
+    from scipy.optimize import linear_sum_assignment
+
+    from pytorch_points_tpu_torch.kernels import auction
+    from pytorch_points_tpu_torch.ops import earth_mover_distance
+
+    b, n = EMD4["b"], EMD4["n"]
+    print(f"== phase 6: EMD (config 4), earth_mover_distance on B={b} N={n} "
+          "standard-normal clouds")
+    p, q = config4_clouds(torch, dev)
+    print(f"hardness hint: {bool(auction._hardness_hint(p, q))}")
+    earth_mover_distance(p, q)  # warm-up, uncounted
+    times, outs = [], []
+
+    def emd():
+        for _ in range(EMD_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(earth_mover_distance(p, q))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+
+    launches = drive(wrappers, EMD_KERNELS, "config 4 EMD", emd)
+    for dist, assign in outs:
+        check_assignment(torch, "config 4", p, q, dist, assign)
+        if not torch.equal(dist, outs[0][0]):
+            fail("config 4: two calls on the same clouds differ")
+    print(f"config 4 EMD median {statistics.median(times)!r} ms per call over "
+          f"{len(times)} calls: {times}; mean matched d^2 "
+          f"{outs[0][0].mean().item()!r}")
+
+    # excess over the Hungarian optimum, as bench.py measures it
+    qrng = np.random.default_rng(7)
+    for kind, maker in (("normal", normal), ("gmm", gmm)):
+        pa, qa = maker(qrng, EMD_ORACLE, n), maker(qrng, EMD_ORACLE, n)
+        opt = []
+        for bi in range(EMD_ORACLE):
+            d2 = ((pa[bi, :, None, :].astype(np.float64)
+                   - qa[bi, None, :, :]) ** 2).sum(-1)
+            r, c = linear_sum_assignment(d2)
+            opt.append(d2[r, c].mean())
+        tp, tq = torch.from_numpy(pa).to(dev), torch.from_numpy(qa).to(dev)
+        for pop in (768, 384):
+            dist, assign = earth_mover_distance(tp, tq, endgame_pop_cap=pop)
+            check_assignment(torch, f"{kind} pop {pop}", tp, tq, dist, assign)
+            got = dist.double().mean(1).cpu().numpy()
+            exc = [float(100.0 * (g - o) / o) for g, o in zip(got, opt)]
+            print(f"EMD excess over the Hungarian optimum, {kind} clouds, "
+                  f"pop cap {pop}, {EMD_ORACLE} elements at N={n}: mean "
+                  f"{statistics.mean(exc)!r}% max {max(exc)!r}% min "
+                  f"{min(exc)!r}%")
+            if pop == 768 and max(exc) > EMD_EXCESS_BAR:
+                fail(f"EMD {kind}: an element is {max(exc)}% over the "
+                     f"optimum at pop cap 768 (bar {EMD_EXCESS_BAR}%)")
+    return [launches], {f"config 4 EMD B={b} N={n}":
+                        lambda: earth_mover_distance(p, q)[0].sum().item()}
+
+
+def phase_metrics(torch, dev, wrappers):
+    from pytorch_points_tpu_torch.losses import (
+        coverage_and_mmd,
+        one_nn_accuracy,
+    )
+
+    g, r, n = METRIC["g"], METRIC["r"], METRIC["n"]
+    print(f"== phase 7: EMD metrics, coverage_and_mmd(metric='emd') at "
+          f"G={g} R={r} N={n}")
+    rng = np.random.default_rng(SEED + 7)
+    gen = torch.from_numpy(normal(rng, g, n)).to(dev)
+    ref = torch.from_numpy(np.concatenate(
+        [normal(rng, r // 2, n), gmm(rng, r - r // 2, n)])).to(dev)
+    small = [torch.from_numpy(normal(rng, 2, 256)).to(dev) for _ in range(2)]
+    for name, fn in (("coverage_and_mmd", coverage_and_mmd),
+                     ("one_nn_accuracy", one_nn_accuracy)):
+        got = fn(*small, metric="emd", impl="cuda")
+        want = fn(*small, metric="emd", impl="torch")
+        got, want = (torch.stack(list(x)) if isinstance(x, tuple) else x
+                     for x in (got, want))
+        if not torch.equal(got, want):
+            fail(f"{name} (G=R=2 N=256): kernels {got.tolist()} vs plain "
+                 f"{want.tolist()}")
+        print(f"{name} at G=R=2 N=256: kernels equal plain, {got.tolist()}")
+    out = []
+
+    def metric():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cov, mmd = coverage_and_mmd(gen, ref, metric="emd")
+        out.append((cov.item(), mmd.item(), time.perf_counter() - t0))
+
+    launches = drive(wrappers, EMD_KERNELS, "EMD metrics", metric)
+    cov, mmd, secs = out[0]
+    print(f"coverage {cov!r} MMD {mmd!r} in {secs * 1e3!r} ms ({g * r} "
+          "pair solves in batches of 32)")
+    if not (0.0 <= cov <= 1.0 and np.isfinite(mmd) and mmd > 0.0):
+        fail(f"EMD metrics out of range: coverage {cov} MMD {mmd}")
+    return [launches], {}
 
 
 def profile_path(torch, label, fn, calls=5):
@@ -664,6 +935,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from pytorch_points_tpu_torch.kernels import (
         _build,
+        auction,
         ballquery,
         distance_tiles,
         fps,
@@ -693,23 +965,27 @@ def main() -> int:
                 "scatter": scatter.scatter_add_cuda,
                 "nn_dense": distance_tiles.nn_one_direction_cuda,
                 "nn_band": nn_sorted.band_min_cuda,
-                "nn_resident": nn_sorted.nn_resident_cuda}
+                "nn_resident": nn_sorted.nn_resident_cuda,
+                "auction": auction.auction_cuda,
+                "augment": auction.augment_cuda}
     stats = phase_kernels(torch, dev)
     paths, calls = [], {}
-    for phase in (phase_serve, phase_train, phase_headline):
+    for phase in (phase_serve, phase_train, phase_headline, phase_emd,
+                  phase_metrics):
         counts, fns = phase(torch, dev, wrappers)
-        paths.append(counts)
+        paths += counts
         calls.update(fns)
-    print("== phase 6: profile one call of each main path")
+    print("== phase 8: profile one call of each main path")
     for label, fn in calls.items():
         profile_path(torch, label, fn)
 
-    # launches: the sum over the three main paths' runs (each printed above)
+    # launches: the sum over the main paths' runs (each printed above)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(counts[name] for counts in paths), **stats[name]}
         for name, (src, rep) in KERNELS.items()
     ]
+    print(f"chip_smoke ran {time.perf_counter() - START!r} s")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -9,4 +9,5 @@ at their first launch (``_build.library``).
 # Ops whose CUDA kernel has landed; dispatch.resolve refuses the others on
 # CUDA tensors rather than fall back to the plain version.
 AVAILABLE = frozenset({"fps", "ball_query", "gather", "knn", "scatter",
-                       "nn_dense", "nn_band", "nn_resident"})
+                       "nn_dense", "nn_band", "nn_resident", "auction",
+                       "augment"})

@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FA, _IA = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # xyz, mask, seed, b, n, k, out_idx, out_xyz, scratch, stream
     "ppt_fps": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
@@ -46,6 +47,17 @@ _SIGNATURES = {
     "ppt_nn_band": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # ps, qs, qid, cand, b, ni, nj, tn, tm, out_d, out_i, stream
     "ppt_nn_resident": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # n, ti -> bytes of one cloud's state
+    "ppt_auction_state_bytes": [_I, _I],
+    # p, q, b, n, ti, phases, eps (host), budgets (host), hint, warm_start,
+    # out_owner, out_price, scratch, scratch_stride, stream
+    "ppt_auction": [_P, _P, _I, _I, _I, _I, _FA, _IA, _P, _I, _P, _P, _P, _I,
+                    _P],
+    # n -> bytes of one cloud's state
+    "ppt_augment_state_bytes": [_I],
+    # p, q, owner_in, price_in, b, n, eps, pop_cap, cap, out_owner,
+    # out_price, scratch, scratch_stride, stream
+    "ppt_augment": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P, _P, _P, _I, _P],
 }
 
 

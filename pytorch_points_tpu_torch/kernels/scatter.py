@@ -44,11 +44,13 @@ def scatter_add_cuda(idx: torch.Tensor, updates: torch.Tensor, n: int):
     if b * k >= 2**31 or b * n >= 2**31:
         raise ValueError(f"scatter: B*K={b * k} and B*n={b * n} must be "
                          "below 2^31")
-    keys = _row_keys(idx, n)
-    order = torch.sort(keys, stable=True).indices.to(torch.int32)
-    counts = torch.bincount(keys, minlength=b * n + 1)[: b * n]
-    offsets = torch.zeros(b * n + 1, dtype=torch.int32, device=idx.device)
-    offsets[1:] = counts.cumsum(0)
+    keys, order = torch.sort(_row_keys(idx, n), stable=True)
+    order = order.to(torch.int32)
+    # row r's updates are order[offsets[r]:offsets[r + 1]]: offsets[r] is
+    # the count of keys below r (a search of the sorted keys, which, unlike
+    # a bincount, needs no host sync)
+    offsets = torch.searchsorted(
+        keys, torch.arange(b * n + 1, device=idx.device), out_int32=True)
     out = torch.empty((b, n, c), dtype=torch.float32, device=idx.device)
     err = _build.library().ppt_scatter_rows(
         updates.data_ptr(), order.data_ptr(), offsets.data_ptr(), b * n, c,

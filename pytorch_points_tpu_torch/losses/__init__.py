@@ -1,0 +1,20 @@
+"""Losses and evaluation metrics (counterpart of the JAX ``losses``)."""
+
+from pytorch_points_tpu_torch.losses.losses import ChamferLoss, EMDLoss
+from pytorch_points_tpu_torch.losses.metrics import (
+    chamfer_l1,
+    coverage_and_mmd,
+    fscore,
+    hausdorff_distance,
+    one_nn_accuracy,
+)
+
+__all__ = [
+    "ChamferLoss",
+    "EMDLoss",
+    "chamfer_l1",
+    "coverage_and_mmd",
+    "fscore",
+    "hausdorff_distance",
+    "one_nn_accuracy",
+]

@@ -1,0 +1,110 @@
+"""Loss callables (counterpart of the JAX ``losses/losses.py``): so far the
+Chamfer and EMD losses. Each is a frozen dataclass: configuration in the
+constructor, the loss in ``__call__``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from pytorch_points_tpu_torch.ops import earth_mover_distance, nndistance
+
+
+def _reduce(x, reduction):
+    if reduction == "mean":
+        return x.mean()
+    if reduction == "sum":
+        return x.sum()
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class ChamferLoss:
+    """Bidirectional Chamfer loss with optional trimming.
+
+    ``threshold`` zeroes per-point distances at or above it;
+    ``percentage < 1`` keeps only that fraction of the smallest per-point
+    distances in each direction (of the *valid* count when masked).
+    """
+
+    threshold: float | None = None
+    percentage: float = 1.0
+    one_sided: bool = False
+    reduction: str = "mean"
+    impl: str = "auto"
+
+    def __call__(self, pred, gt, pred_mask=None, gt_mask=None):
+        d1, _, d2, _ = nndistance(pred, gt, pred_mask, gt_mask,
+                                  impl=self.impl)
+
+        def direction(d, mask):
+            if self.threshold is not None:
+                d = torch.where(d < self.threshold, d, 0.0)
+            if self.percentage < 1.0:
+                n = d.shape[-1]
+                if mask is not None:
+                    # masked points sort to the end as +inf
+                    d = torch.where(mask, d, torch.inf)
+                    keep = torch.clamp_min(
+                        (mask.sum(-1) * self.percentage).to(torch.int32), 1)
+                    d_sorted = torch.sort(d, dim=-1).values
+                    sel = torch.arange(n, device=d.device) < keep[..., None]
+                    kept = torch.where(
+                        sel, torch.where(torch.isinf(d_sorted), 0.0,
+                                         d_sorted), 0.0)
+                    return kept.sum(-1) / keep
+                keep = max(1, int(n * self.percentage))
+                return torch.sort(d, dim=-1).values[..., :keep].mean(-1)
+            if mask is not None:
+                return (torch.where(mask, d, 0.0).sum(-1)
+                        / torch.clamp_min(mask.sum(-1), 1))
+            return d.mean(-1)
+
+        loss = direction(d1, pred_mask)
+        if not self.one_sided:
+            loss = loss + direction(d2, gt_mask)
+        return _reduce(loss, self.reduction)
+
+
+@dataclasses.dataclass(frozen=True)
+class EMDLoss:
+    """Auction-EMD loss (mean matched squared distance).
+
+    Training operating point: ``endgame_pop_cap`` defaults to 384 here
+    (vs 768 on the raw op and the metrics). On the correlated pairs a train
+    step feeds the loss, 384 stays close to the Hungarian optimum at a
+    lower endgame cost; the op's 768 buys assignment fidelity that matters
+    when EMD is the *measurement*.
+
+    MEASURED WORST CASE of this default (the JAX reference's 8-element
+    Hungarian oracle; the port computes the same assignments): on UNCORRELATED standard-normal cloud pairs -- unlike
+    anything a converging model emits, but exactly what a randomly
+    initialized generator's first steps look like -- pop cap 384 measured
+    **+3.2% mean / +5.03% max** over the optimum, i.e. the max can exceed
+    the library's 5% near-optimality bar. If your training pairs are
+    near-random (or you use this class as a *metric*), pass
+    ``endgame_pop_cap=768``, which measured +1.35% / +2.05% on the same
+    clouds.
+    """
+
+    eps: float = 0.005
+    max_iters: int = 15
+    phases: int = 3
+    endgame_pop_cap: int = 384
+    reduction: str = "mean"
+    impl: str = "auto"
+
+    def __call__(self, pred, gt, pred_mask=None, gt_mask=None):
+        dist, _ = earth_mover_distance(
+            pred, gt, eps=self.eps, max_iters=self.max_iters,
+            phases=self.phases, impl=self.impl,
+            endgame_pop_cap=self.endgame_pop_cap, p_mask=pred_mask,
+            q_mask=gt_mask,
+        )
+        if pred_mask is None:
+            per = dist.mean(-1)
+        else:  # masked slots carry dist 0; mean over the VALID count
+            per = dist.sum(-1) / torch.clamp_min(pred_mask.sum(-1), 1)
+        return _reduce(per, self.reduction)

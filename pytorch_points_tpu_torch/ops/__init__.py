@@ -3,6 +3,7 @@ from pytorch_points_tpu_torch.ops.chamfer import (
     chamfer_path,
     nndistance,
 )
+from pytorch_points_tpu_torch.ops.emd import earth_mover_distance
 from pytorch_points_tpu_torch.ops.grouping import (
     ball_query,
     group_all,
@@ -15,6 +16,7 @@ from pytorch_points_tpu_torch.ops.interpolate import (
     three_interpolate,
     three_nn,
 )
+from pytorch_points_tpu_torch.ops.pairwise import pairwise_sqdist
 from pytorch_points_tpu_torch.ops.sampling import (
     furthest_point_sample,
     furthest_point_sample_and_gather,
@@ -26,6 +28,7 @@ __all__ = [
     "ball_query",
     "chamfer_distance",
     "chamfer_path",
+    "earth_mover_distance",
     "furthest_point_sample",
     "furthest_point_sample_and_gather",
     "gather_points",
@@ -34,6 +37,7 @@ __all__ = [
     "interpolation_weights",
     "knn",
     "nndistance",
+    "pairwise_sqdist",
     "sample_and_group",
     "scatter_add",
     "three_interpolate",

@@ -8,7 +8,8 @@ it; from the repository root on the card:
 
 (``--noconftest`` skips tests/conftest.py, which sets up JAX.) The bar is
 the kernels' contract: indices identical and values bitwise equal; the scatter (K4) sums in ascending k, so it
-equals its plain version run on the CPU bitwise.
+equals its plain version run on the CPU bitwise. The auction (K11) and its
+endgame (K12) give the plain versions' owners and prices bitwise.
 """
 
 import numpy as np
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from pytorch_points_tpu_torch.kernels import (
+    auction,
     ballquery,
     distance_tiles,
     fps,
@@ -25,13 +27,18 @@ from pytorch_points_tpu_torch.kernels import (
     topk_scan,
 )
 from pytorch_points_tpu_torch.models import PointCloudAutoencoder
-from pytorch_points_tpu_torch.parallel import reconstruction_loss
+from pytorch_points_tpu_torch.ops import earth_mover_distance
+from pytorch_points_tpu_torch.parallel import (
+    make_train_step,
+    reconstruction_loss,
+)
 from torch_inputs import (
     FPS_CASES,
     SCATTER_CASES,
     autoencoder_inputs,
     bq_inputs,
     cloud,
+    emd_cloud,
     fps_inputs,
     nn_inputs,
     scatter_inputs,
@@ -189,8 +196,142 @@ def test_autoencoder_backward_cuda_matches_plain(dev):
     grads = {}
     for impl in ("cuda", "torch"):
         model.zero_grad(set_to_none=True)
-        reconstruction_loss(impl=impl)(model, {"points": x}).backward()
+        reconstruction_loss(emd_weight=0, impl=impl)(
+            model, {"points": x}).backward()
         grads[impl] = [p.grad.clone() for p in model.parameters()]
     for got, ref in zip(grads["cuda"], grads["torch"]):
         scale = ref.abs().max().item()
         torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * scale)
+
+
+# (kind, b, n, max_iters, pop_cap, masked): N=500 pads to 512; the masked
+# case poisons ~20% of both clouds by rank, as earth_mover_distance does.
+AUCTION_CASES = {
+    "normal": ("normal", 4, 512, 15, 768, False),
+    "gmm": ("gmm", 4, 512, 15, 768, False),
+    "grid_ties": ("grid", 4, 512, 15, 768, False),
+    "padded": ("normal", 3, 500, 15, 768, False),
+    "masked": ("normal", 4, 512, 15, 768, True),
+    "pop8": ("normal", 4, 512, 3, 8, False),
+}
+
+
+def _auction_inputs(case):
+    kind, b, n, iters, pop, masked = AUCTION_CASES[case]
+    rng = np.random.default_rng(13)
+    p, q = emd_cloud(rng, b, n, kind), emd_cloud(rng, b, n, kind)
+    if masked:
+        from pytorch_points_tpu_torch.ops.emd import _poison_rank_matched
+
+        keep = rng.permutation(n)[: n * 4 // 5]
+        pm = np.isin(np.arange(n), keep)[None].repeat(b, 0)
+        qm = np.isin(np.arange(n), rng.permutation(n)[: n * 4 // 5])[None]
+        p = _poison_rank_matched(torch.from_numpy(p), torch.from_numpy(pm))
+        q = _poison_rank_matched(torch.from_numpy(q),
+                                 torch.from_numpy(qm.repeat(b, 0)))
+        p, q = p.numpy(), q.numpy()
+    return p, q, iters, pop
+
+
+@pytest.mark.parametrize("case", sorted(AUCTION_CASES))
+def test_auction_and_augment_cuda_match_plain(dev, case):
+    p, q, iters, pop = _auction_inputs(case)
+    p, q = _on(dev, p, q)
+    out = {}
+    for impl in ("cuda", "torch"):
+        owner, price, pp, qp = auction._auction_owner(p, q, 0.005, iters, 256,
+                                                      3, 6.0, impl=impl)
+        out[impl] = (owner, price, *auction._residual_rounds(
+            owner, price, pp, qp, 0.005, pop, impl=impl))
+    _assert_same(out["cuda"], out["torch"])
+    assert (out["cuda"][2] >= 0).all()
+
+
+@pytest.mark.parametrize("hint", [False, True])
+def test_auction_cuda_reads_the_hint_on_the_card(dev, hint):
+    p, q, _, _ = _auction_inputs("normal")
+    p, q = _on(dev, p, q)
+    flag = torch.tensor(hint, device=dev)
+    got = auction._auction_owner(p, q, 0.005, 2, 256, 3, 6.0, (), True, flag,
+                                 (4, 3, 2), impl="cuda")
+    ref = auction._auction_owner(p, q, 0.005, 2, 256, 3, 6.0, (), True, flag,
+                                 (4, 3, 2), impl="torch")
+    _assert_same(got[:2], ref[:2])
+
+
+def test_auction_and_augment_cuda_scratch_path(dev):
+    # state above the shared-memory budget: kept in a global scratch buffer
+    rng = np.random.default_rng(14)
+    p, q = _on(dev, emd_cloud(rng, 1, 6144, "normal"),
+               emd_cloud(rng, 1, 6144, "normal"))
+    assert auction._SMEM_MAX_BYTES < min(
+        auction._build.library().ppt_auction_state_bytes(6144, 256),
+        auction._build.library().ppt_augment_state_bytes(6144))
+    out = {}
+    for impl in ("cuda", "torch"):
+        owner, price, pp, qp = auction._auction_owner(p, q, 0.005, 3, 256, 3,
+                                                      6.0, impl=impl)
+        out[impl] = (owner, price, *auction._residual_rounds(
+            owner, price, pp, qp, 0.005, 64, impl=impl))
+    _assert_same(out["cuda"], out["torch"])
+
+
+def test_emd_cuda_grads_match_plain(dev):
+    rng = np.random.default_rng(15)
+    p, q = _on(dev, emd_cloud(rng, 4, 1024, "normal"),
+               emd_cloud(rng, 4, 1024, "normal"))
+    w = torch.from_numpy(rng.standard_normal((4, 1024)).astype(np.float32))
+    res = {}
+    for impl in ("cuda", "torch"):
+        x, y = p.clone().requires_grad_(), q.clone().requires_grad_()
+        dist, assign = earth_mover_distance(x, y, impl=impl)
+        (dist * w.to(dev)).sum().backward()
+        res[impl] = (dist, assign, x.grad, y.grad)
+    # a permutation: the scatter of the q grad is exact in both versions
+    _assert_same(res["cuda"], res["torch"])
+
+
+def test_emd_forward_and_backward_make_no_host_sync(dev):
+    """Below the endgame's cap every person ends with an object, so the
+    greedy backstop (a host loop) is skipped, and the scatter (K4) finds
+    its row offsets on the card: the EMD forward, hint and ladder choice
+    included, and its backward queue on the card without a sync."""
+    rng = np.random.default_rng(16)
+    p, q = _on(dev, emd_cloud(rng, 4, 1000, "gmm"),
+               emd_cloud(rng, 4, 1000, "gmm"))
+    p.requires_grad_()
+    q.requires_grad_()
+    auction._build.library()  # the first call builds; building syncs
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dist, assign = earth_mover_distance(p, q)
+        dist.sum().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (torch.sort(assign, 1).values
+            == torch.arange(1000, device=dev, dtype=torch.int32)).all()
+    assert torch.isfinite(dist).all()
+    # a permutation: q's grad is minus p's, moved to the matched rows
+    assert torch.equal(q.grad.gather(1, assign.long()[..., None].expand(
+        -1, -1, 3)), -p.grad)
+
+
+def test_config5_train_step_makes_no_host_sync(dev):
+    """A config-5 step (Chamfer + 0.1 EMD at EMDLoss's pop cap) queues on
+    the card, forward, backward and Adam, without a host sync: only reading
+    its loss waits."""
+    xyz, _ = autoencoder_inputs(masked=False)
+    (x,) = _on(dev, xyz)
+    model = PointCloudAutoencoder(npoint1=128, npoint2=32, device=dev)
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), 1e-3),
+                           reconstruction_loss(emd_kwargs={
+                               "endgame_pop_cap": 384}))
+    step({"points": x}).item()  # builds the kernels and Adam's state
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = step({"points": x})
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(loss.item())

@@ -18,6 +18,22 @@ def cloud(rng, b, n, kind="random"):
     return rng.uniform(-1, 1, (b, n, 3)).astype(np.float32)
 
 
+def emd_cloud(rng, b, n, kind):
+    """[B,N,3] f32 clouds for the EMD tests: "grid" (the dyadic grid k/64,
+    every distance exact in f32, many ties), "normal", "uniform" or "gmm"
+    (8 gaussian clusters of spread 0.15, as bench.py draws them)."""
+    if kind == "grid":
+        return (rng.integers(-64, 65, (b, n, 3)) / 64).astype(np.float32)
+    if kind == "normal":
+        return rng.standard_normal((b, n, 3)).astype(np.float32)
+    if kind == "uniform":
+        return rng.uniform(-1, 1, (b, n, 3)).astype(np.float32)
+    centers = rng.uniform(-1, 1, (b, 8, 3))
+    which = rng.integers(0, 8, (b, n))
+    return (centers[np.arange(b)[:, None], which]
+            + 0.15 * rng.standard_normal((b, n, 3))).astype(np.float32)
+
+
 def valid_mask(rng, b, n, frac=0.75):
     return rng.uniform(size=(b, n)) < frac
 
