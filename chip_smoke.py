@@ -22,9 +22,16 @@ Phases, in order; any failure raises and exits non-zero:
    exact for a permutation write; the auction (K11) and its JV endgame
    (K12) with owners and prices bitwise equal, on config 4's normal clouds,
    gaussian-mixture, tie-grid, padded (N=2000) and masked clouds, both
-   budget ladders, and a small endgame pop cap. Kernel and plain times
-   from CUDA events (a plain version that takes over a second: one call on
-   the host clock);
+   budget ladders, and a small endgame pop cap; the Morton-ring kNN (K9),
+   its masked form (K10) and its stats twin at config 6's shapes, and the
+   band with window centres (K7) at the masked headline's, K9 and K10 also
+   against the streaming kNN (K8) at B=4 N=16384 with forced ties and
+   ragged valid counts. Kernel and plain times from CUDA events (a plain
+   version that takes over a second: one call on the host clock); beside
+   them each case's bound (the least time the card could take: bytes over
+   3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger) and,
+   for the gather and the scatter, the time of one PyTorch call computing
+   the same function (``torch.gather``, ``Tensor.index_add_``);
 3. serve: a full-width PointCloudAutoencoder (random weights from a seeded
    torch.Generator) answers B=16 N=2048 requests, B=32 N=16384 requests and
    masked requests under inference_mode. Every output must be finite and
@@ -46,13 +53,22 @@ Phases, in order; any failure raises and exits non-zero:
    pop-768 element within 5% of the optimum;
 7. EMD metrics: coverage_and_mmd(metric="emd") at G=R=16 N=2048, values
    finite and in range; at a small size, COV/MMD and 1-NNA equal to the
-   plain versions'.
+   plain versions';
+8. config 6: ops.knn(x, x, 16) at B=16 N=16384 (the Morton-ring path),
+   median of 10 synchronised calls, equal to the plain versions; then the
+   ring stats twin on the same clouds, its visit rate and steps per visit
+   equal to the plain version's;
+9. config 6m: the same kNN with 75% prefix-valid support masks (the masked
+   ring path); no invalid point returned;
+10. masked headline: phase 5 on 75% prefix-valid clouds (p_mask = q_mask),
+   the chamfer on the "sorted_masked" path (K7 band, candidate mask, K6
+   resident scan), with each direction's share of candidate tile pairs.
 
-Phases 3-7 are the main paths. Each sets every kernel's launch count to 0
+Phases 3-10 are the main paths. Each sets every kernel's launch count to 0
 just before it runs and reads them just after, and fails if a kernel of its
 path was never launched.
 
-8. profile: one call of each main path, traced with torch.profiler after
+11. profile: one call of each main path, traced with torch.profiler after
    its untraced timing: wall ms, device busy ms and idle share per call,
    and the largest device items. It checks nothing; its launches are not
    counted.
@@ -97,6 +113,15 @@ EMD_HARD = (40, 25, 15)  # the ladder the hardness hint picks
 CONFIG5_EMD = {"endgame_pop_cap": 384}  # EMDLoss's training point
 METRIC = dict(g=16, r=16, n=2048)
 PLAIN_SINGLE_MS = 1000.0  # a plain version this slow is timed in one call
+CONFIG6 = dict(b=16, n=16384, k=16)  # bench.py config 6: knn(x, x, 16)
+VALID_SHARE = 0.75  # config 6m's and the masked headline's prefix masks
+KNN_CALLS = 10
+RING_CHECK = dict(b=4, n=16384, k=16)  # the reference's at-scale checks
+RING_VALID = (16384, 12288, 12211, 9001)  # valid counts of its masked one
+# The bound: NVIDIA's H100 SXM data sheet.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12  # float32 outside the tensor cores
+DIST_FLOPS = 8  # one squared distance: 3 subtract, 3 multiply, 2 add
 
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "fps": ("pytorch_points_tpu_torch/csrc/fps.cu",
@@ -113,8 +138,16 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                  "pytorch_points_tpu/kernels/distance_tiles.py:78"),
     "nn_band": ("pytorch_points_tpu_torch/csrc/nn_sorted.cu",
                 "pytorch_points_tpu/kernels/nn_sorted.py:151"),
+    "nn_band_dynamic": ("pytorch_points_tpu_torch/csrc/nn_sorted.cu",
+                        "pytorch_points_tpu/kernels/nn_sorted.py:242"),
     "nn_resident": ("pytorch_points_tpu_torch/csrc/nn_sorted.cu",
                     "pytorch_points_tpu/kernels/nn_sorted.py:387"),
+    "knn_ring": ("pytorch_points_tpu_torch/csrc/knn_ring.cu",
+                 "pytorch_points_tpu/kernels/topk_scan.py:268"),
+    "knn_ring_masked": ("pytorch_points_tpu_torch/csrc/knn_ring.cu",
+                        "pytorch_points_tpu/kernels/topk_scan.py:309"),
+    "knn_ring_stats": ("pytorch_points_tpu_torch/csrc/knn_ring.cu",
+                       "pytorch_points_tpu/kernels/topk_scan.py:287"),
     "auction": ("pytorch_points_tpu_torch/csrc/auction.cu",
                 "pytorch_points_tpu/kernels/auction.py:45"),
     "augment": ("pytorch_points_tpu_torch/csrc/augment.cu",
@@ -125,6 +158,8 @@ TRAIN_KERNELS = (*SERVE_KERNELS, "scatter", "nn_dense")
 EMD_KERNELS = ("auction", "augment")
 HEAD_KERNELS = ("fps", "ball_query", "gather", "scatter", "nn_band",
                 "nn_resident")
+HEAD_MASKED_KERNELS = ("fps", "ball_query", "gather", "scatter",
+                       "nn_band_dynamic", "nn_resident")
 
 
 def fail(msg: str) -> None:
@@ -193,8 +228,79 @@ def equal_count_masks(rng, b, n):
                       for c in counts]) for _ in range(2)]
 
 
+def prefix_mask(torch, b, n, dev, valid=None):
+    """[B,N] bool, the first ``valid[i]`` points of cloud i (default: the
+    first VALID_SHARE of every cloud), as a bucketing batcher emits."""
+    valid = [int(n * VALID_SHARE)] * b if valid is None else valid
+    return (torch.arange(n, device=dev)[None]
+            < torch.tensor(valid, device=dev)[:, None])
+
+
+class Case:
+    """One kernel-vs-plain check. ``fn(impl)`` runs the kernel ("cuda") or
+    its plain version ("torch"); ``inputs`` are the kernel's input tensors,
+    each read once in the byte bound (outputs written once); ``ops`` the
+    f32 operations the work needs on these inputs, a number or a function
+    of the kernel's outputs (data-dependent work); ``library`` one PyTorch
+    call computing the same function, or None; ``bound`` the scatter's
+    summation-order bound (None: bitwise equal)."""
+
+    def __init__(self, name, label, fn, inputs, ops=0, library=None,
+                 bound=None):
+        self.name, self.label, self.fn = name, label, fn
+        self.inputs, self.ops, self.library, self.bound = (
+            inputs, ops, library, bound)
+
+
+def nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound_ms(byte_count, ops):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    card's memory rate and the f32 operations over its peak."""
+    t_bytes = byte_count / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gather_call(torch, f, idx):
+    """torch.gather computing gather_rows(f, idx)."""
+    i64 = idx.long()[..., None].expand(-1, -1, f.shape[-1]).contiguous()
+    return lambda: torch.gather(f, 1, i64)
+
+
+def index_add_call(torch, idx, upd, n):
+    """One Tensor.index_add_ computing scatter_add(idx, upd, n), batch
+    rows flattened (the accumulator's values do not matter for a time)."""
+    b, k, c = upd.shape
+    flat = (idx.long() + torch.arange(b, device=idx.device)[:, None] * n
+            ).reshape(-1)
+    out = upd.new_zeros((b * n, c))
+    src = upd.reshape(b * k, c).contiguous()
+    return lambda: out.index_add_(0, flat, src)
+
+
+def bq_ops(torch, xyz, cen, radius, nsample, mask=None):
+    """Distance flops a ball query needs: each centre scans its support in
+    index order up to its nsample-th hit (or to the end)."""
+    from pytorch_points_tpu_torch.kernels import ballquery, distance_tiles
+
+    r2 = ballquery.squared_radius(radius)
+    n = xyz.shape[1]
+    pairs = 0
+    for bi in range(xyz.shape[0]):
+        hits = distance_tiles.sqdist_rows(cen[bi], xyz[bi]) < r2
+        if mask is not None:
+            hits &= mask[bi][None]
+        reached = (hits.cumsum(dim=1) < nsample).sum(dim=1) + 1
+        pairs += reached.clamp_max(n).sum().item()
+    return DIST_FLOPS * pairs
+
+
 def kernel_cases(torch, rng, dev):
-    """(kernel, label, fn(impl) -> outputs) at the serving path's shapes."""
+    """Cases at the serving path's shapes."""
     from pytorch_points_tpu_torch.kernels import ballquery, fps, gather
     from pytorch_points_tpu_torch.ops import grouping
 
@@ -210,16 +316,21 @@ def kernel_cases(torch, rng, dev):
                                       impl="torch")
         flat = idx.reshape(b, -1)
         cases += [
-            ("fps", f"sa1 {tag} k={NPOINT1}",
-             lambda impl, x=xyz: fps.furthest_point_sample(x, NPOINT1,
-                                                           impl=impl)),
-            ("ball_query", f"sa1 {tag} P={NPOINT1} r={RADIUS1}",
-             lambda impl, x=xyz, c=cen: ballquery.ball_query(
-                 x, c, RADIUS1, NSAMPLE, impl=impl)),
-            ("gather", f"sa1 xyz {tag} K={flat.shape[1]} C=3",
-             lambda impl, x=xyz, i=flat: gather.gather_rows(x, i, impl=impl)),
-            ("knn", f"fp1 {tag} Nq={n} Ns={NPOINT1} k=3",
-             lambda impl, x=xyz, c=cen: grouping.knn(x, c, 3, impl=impl)),
+            Case("fps", f"sa1 {tag} k={NPOINT1}",
+                 lambda impl, x=xyz: fps.furthest_point_sample(
+                     x, NPOINT1, impl=impl),
+                 [xyz], DIST_FLOPS * b * n * NPOINT1),
+            Case("ball_query", f"sa1 {tag} P={NPOINT1} r={RADIUS1}",
+                 lambda impl, x=xyz, c=cen: ballquery.ball_query(
+                     x, c, RADIUS1, NSAMPLE, impl=impl),
+                 [xyz, cen], bq_ops(torch, xyz, cen, RADIUS1, NSAMPLE)),
+            Case("gather", f"sa1 xyz {tag} K={flat.shape[1]} C=3",
+                 lambda impl, x=xyz, i=flat: gather.gather_rows(
+                     x, i, impl=impl),
+                 [xyz, flat], library=gather_call(torch, xyz, flat)),
+            Case("knn", f"fp1 {tag} Nq={n} Ns={NPOINT1} k=3",
+                 lambda impl, x=xyz, c=cen: grouping.knn(x, c, 3, impl=impl),
+                 [xyz, cen], DIST_FLOPS * b * n * NPOINT1),
         ]
     b, n = SLICE["b"], SLICE["n"]
     xyz = t(cloud(rng, b, n))
@@ -229,25 +340,32 @@ def kernel_cases(torch, rng, dev):
     cen2 = fps.furthest_point_sample(xyz2, NPOINT2, impl="torch")[1]
     idx2, _ = ballquery.ball_query(xyz2, cen2, RADIUS2, NSAMPLE, impl="torch")
     f1 = t(rng.standard_normal((b, NPOINT1, 128)).astype(np.float32))
+    flat2 = idx2.reshape(b, -1)
     smask = t(rng.uniform(size=(b, NPOINT1)) < 0.75)
     cases += [
-        ("fps", "sa1 B16_N2048 75%-valid mask",
-         lambda impl: fps.furthest_point_sample(xyz, NPOINT1, mask,
-                                                impl=impl)),
-        ("ball_query", "sa1 B16_N2048 75%-valid mask",
-         lambda impl: ballquery.ball_query(xyz, cen, RADIUS1, NSAMPLE, mask,
-                                           impl=impl)),
-        ("ball_query", f"sa2 B16 N={NPOINT1} P={NPOINT2} r={RADIUS2}",
-         lambda impl: ballquery.ball_query(xyz2, cen2, RADIUS2, NSAMPLE,
-                                           impl=impl)),
-        ("gather", f"sa2 features B16 K={NPOINT2 * NSAMPLE} C=128",
-         lambda impl: gather.gather_rows(f1, idx2.reshape(b, -1),
-                                         impl=impl)),
-        ("knn", f"fp2 B16 Nq={NPOINT1} Ns={NPOINT2} k=3",
-         lambda impl: grouping.knn(xyz2, cen2, 3, impl=impl)),
-        ("knn", "fp1 B16_N2048 75%-valid support mask",
-         lambda impl: grouping.knn(xyz, cen, 3, support_mask=smask,
-                                   impl=impl)),
+        Case("fps", "sa1 B16_N2048 75%-valid mask",
+             lambda impl: fps.furthest_point_sample(xyz, NPOINT1, mask,
+                                                    impl=impl),
+             [xyz, mask], DIST_FLOPS * b * n * NPOINT1),
+        Case("ball_query", "sa1 B16_N2048 75%-valid mask",
+             lambda impl: ballquery.ball_query(xyz, cen, RADIUS1, NSAMPLE,
+                                               mask, impl=impl),
+             [xyz, cen, mask],
+             bq_ops(torch, xyz, cen, RADIUS1, NSAMPLE, mask)),
+        Case("ball_query", f"sa2 B16 N={NPOINT1} P={NPOINT2} r={RADIUS2}",
+             lambda impl: ballquery.ball_query(xyz2, cen2, RADIUS2, NSAMPLE,
+                                               impl=impl),
+             [xyz2, cen2], bq_ops(torch, xyz2, cen2, RADIUS2, NSAMPLE)),
+        Case("gather", f"sa2 features B16 K={NPOINT2 * NSAMPLE} C=128",
+             lambda impl: gather.gather_rows(f1, flat2, impl=impl),
+             [f1, flat2], library=gather_call(torch, f1, flat2)),
+        Case("knn", f"fp2 B16 Nq={NPOINT1} Ns={NPOINT2} k=3",
+             lambda impl: grouping.knn(xyz2, cen2, 3, impl=impl),
+             [xyz2, cen2], DIST_FLOPS * b * NPOINT1 * NPOINT2),
+        Case("knn", "fp1 B16_N2048 75%-valid support mask",
+             lambda impl: grouping.knn(xyz, cen, 3, support_mask=smask,
+                                       impl=impl),
+             [xyz, cen, smask], DIST_FLOPS * b * n * NPOINT1),
     ]
     return cases
 
@@ -264,10 +382,9 @@ def scatter_bound(torch, idx, upd, n):
 
 
 def training_kernel_cases(torch, rng, dev):
-    """(kernel, label, fn(impl) -> outputs, bound or None) for the kernels
-    of the training paths: K5 at config 5's shape; K6, and K1, K2 and K3 at
-    the headline's; K4 at the backward scatters of both. bound None:
-    bitwise equal."""
+    """Cases of the training paths' kernels: K5 at config 5's shape; K6,
+    and K1, K2 and K3 at the headline's; K4 at the backward scatters of
+    both (within its summation-order bound)."""
     from pytorch_points_tpu_torch.core.masking import poison_points
     from pytorch_points_tpu_torch.kernels import (
         ballquery,
@@ -286,16 +403,19 @@ def training_kernel_cases(torch, rng, dev):
     pm, qm = (t(rng.uniform(size=(b, n)) < 0.75) for _ in range(2))
     pp, qp = poison_points(p, pm, 1.0), poison_points(q, qm, -1.0)
     gp, gq = (t(rng.integers(0, 8, (b, n, 3)) / 8).float() for _ in range(2))
+    dense_ops = 2 * DIST_FLOPS * b * n * n  # both directions
     cases = [
-        ("nn_dense", f"chamfer B16 N=M={n}",
-         lambda impl: distance_tiles.nn_both_directions(p, q, impl=impl),
-         None),
-        ("nn_dense", f"chamfer B16 N=M={n} 75%-valid poisoned",
-         lambda impl: distance_tiles.nn_both_directions(pp, qp, impl=impl),
-         None),
-        ("nn_dense", f"chamfer B16 N=M={n} tie grid",
-         lambda impl: distance_tiles.nn_both_directions(gp, gq, impl=impl),
-         None),
+        Case("nn_dense", f"chamfer B16 N=M={n}",
+             lambda impl: distance_tiles.nn_both_directions(p, q, impl=impl),
+             [p, q], dense_ops),
+        Case("nn_dense", f"chamfer B16 N=M={n} 75%-valid poisoned",
+             lambda impl: distance_tiles.nn_both_directions(pp, qp,
+                                                            impl=impl),
+             [pp, qp], dense_ops),
+        Case("nn_dense", f"chamfer B16 N=M={n} tie grid",
+             lambda impl: distance_tiles.nn_both_directions(gp, gq,
+                                                            impl=impl),
+             [gp, gq], dense_ops),
     ]
 
     hb, hn = HEAD["b"], HEAD["n"]
@@ -309,13 +429,17 @@ def training_kernel_cases(torch, rng, dev):
     print(f"K6 at B={hb} N=M={hn}: candidate tile pairs "
           f"{cand.float().mean().item()!r} of all")
     cases += [
-        ("nn_band", f"headline B{hb} N=M={hn} tbq=128 stride=4",
-         lambda impl: nn_sorted.band_min(
-             ps, qs, tb=nn_sorted.TB, tbq=nn_sorted.TBQ,
-             stride=nn_sorted.STRIDE, impl=impl), None),
-        ("nn_resident", f"headline B{hb} N=M={hn} tn=512 tm=64",
-         lambda impl: nn_sorted.nn_resident(ps, qs, perm_q, cand,
-                                            impl=impl), None),
+        Case("nn_band", f"headline B{hb} N=M={hn} tbq=128 stride=4",
+             lambda impl: nn_sorted.band_min(
+                 ps, qs, tb=nn_sorted.TB, tbq=nn_sorted.TBQ,
+                 stride=nn_sorted.STRIDE, impl=impl),
+             [ps, qs[:, ::nn_sorted.STRIDE]],
+             DIST_FLOPS * hb * hn * 3 * nn_sorted.TBQ),
+        Case("nn_resident", f"headline B{hb} N=M={hn} tn=512 tm=64",
+             lambda impl: nn_sorted.nn_resident(ps, qs, perm_q, cand,
+                                                impl=impl),
+             [ps, qs, perm_q, cand], DIST_FLOPS * nn_sorted.TN
+             * nn_sorted.TM * cand.sum().item()),
     ]
 
     xyz = t(cloud(rng, b, n))
@@ -341,14 +465,16 @@ def training_kernel_cases(torch, rng, dev):
                                 impl="torch")[0].reshape(hb, -1)
     hk = hidx.shape[1]
     cases += [
-        ("fps", f"headline B{hb} N={hn} k={HEAD['p']}",
-         lambda impl: fps.furthest_point_sample(hp, HEAD["p"], impl=impl),
-         None),
-        ("ball_query", f"headline B{hb} N={hn} P={HEAD['p']} r={RADIUS1}",
-         lambda impl: ballquery.ball_query(hp, hc, RADIUS1, NSAMPLE,
-                                           impl=impl), None),
-        ("gather", f"headline group B{hb} K={hk} C=3",
-         lambda impl: gather.gather_rows(hp, hidx, impl=impl), None),
+        Case("fps", f"headline B{hb} N={hn} k={HEAD['p']}",
+             lambda impl: fps.furthest_point_sample(hp, HEAD["p"], impl=impl),
+             [hp], DIST_FLOPS * hb * hn * HEAD["p"]),
+        Case("ball_query", f"headline B{hb} N={hn} P={HEAD['p']} r={RADIUS1}",
+             lambda impl: ballquery.ball_query(hp, hc, RADIUS1, NSAMPLE,
+                                               impl=impl),
+             [hp, hc], bq_ops(torch, hp, hc, RADIUS1, NSAMPLE)),
+        Case("gather", f"headline group B{hb} K={hk} C=3",
+             lambda impl: gather.gather_rows(hp, hidx, impl=impl),
+             [hp, hidx], library=gather_call(torch, hp, hidx)),
     ]
     u5 = t(rng.standard_normal((hb, hk, 3)).astype(np.float32))
     u6 = t(rng.standard_normal((hb, HEAD["p"], 3)).astype(np.float32))
@@ -362,12 +488,116 @@ def training_kernel_cases(torch, rng, dev):
         f"headline FPS coords backward B{hb} K={HEAD['p']} n={hn} C=3":
             (hfps, u6, hn),
     }.items():
-        cases.append((
+        cases.append(Case(
             "scatter", label,
             lambda impl, i=i, u=u, m=m: scatter.scatter_add(i, u, m,
                                                             impl=impl),
-            scatter_bound(torch, i, u, m)))
+            [i, u], u.numel(), library=index_add_call(torch, i, u, m),
+            bound=scatter_bound(torch, i, u, m)))
     return cases
+
+
+def masked_head_clouds(torch, dev, valid=None):
+    """The masked headline's clouds as its chamfer sees them: pred and gt
+    poisoned (+x and -x) past the prefix masks, then Morton-sorted over
+    their valid AABBs. Returns (ps, gs, c1, c2, pm, gm)."""
+    from pytorch_points_tpu_torch.core.masking import poison_points
+    from pytorch_points_tpu_torch.kernels import nn_sorted as ns
+
+    b, n = HEAD["b"], HEAD["n"]
+    rng = np.random.default_rng(SEED + 10)
+    pred = torch.from_numpy(head_pred(rng)).to(dev)
+    gt = torch.from_numpy(cloud(rng, b, n)).to(dev)
+    pm = prefix_mask(torch, b, n, dev, valid and valid[0])
+    gm = prefix_mask(torch, b, n, dev, valid and valid[1])
+    ps = ns.sort_by_morton_masked(poison_points(pred, pm, 1.0), pm)[0]
+    gs = ns.sort_by_morton_masked(poison_points(gt, gm, -1.0), gm)[0]
+    c1 = ns._band_centers(pm.sum(1), gm.sum(1), n // ns.TB, n // ns.TB, ns.TB)
+    c2 = ns._band_centers(gm.sum(1), pm.sum(1), n // ns.TB, n // ns.TB, ns.TB)
+    return ps, gs, c1, c2, pm, gm
+
+
+def ring_kernel_cases(torch, dev):
+    """K9, K10 and the stats twin at config 6's shapes, through their
+    wrappers on the sorted, padded clouds; K7 at the masked headline's."""
+    from pytorch_points_tpu_torch.core.masking import poison_points
+    from pytorch_points_tpu_torch.kernels import nn_sorted as ns
+    from pytorch_points_tpu_torch.kernels import topk_scan as ts
+
+    b, n, k = CONFIG6["b"], CONFIG6["n"], CONFIG6["k"]
+    rng = np.random.default_rng(SEED + 8)
+    x = torch.from_numpy(cloud(rng, b, n)).to(dev)
+    xp = poison_points(x, prefix_mask(torch, b, n, dev), -1.0)
+    qsp, sup4, _, _ = ts._ring_inputs(x, x, False)
+    mqsp, msup4, cen, _ = ts._ring_inputs(x, xp, True)
+
+    def visited(counters):  # distance flops of the chunks the scan visited
+        return DIST_FLOPS * ts.TQ * ts.TM * counters[..., 0].sum().item()
+
+    tag = f"config 6 B{b} N={n} k={k}"
+    cases = [
+        Case("knn_ring", tag,
+             lambda impl: (ts.knn_ring_cuda(qsp, sup4, k) if impl == "cuda"
+                           else ts.knn_ring_torch(qsp, sup4, k))[:2],
+             [qsp, sup4],
+             lambda outs: visited(ts.knn_ring_stats_cuda(qsp, sup4, k)[2])),
+        Case("knn_ring_masked", f"config 6m B{b} N={n} k={k} 75% valid",
+             lambda impl: (ts.knn_ring_masked_cuda(mqsp, msup4, k, cen)
+                           if impl == "cuda" else
+                           ts.knn_ring_torch(mqsp, msup4, k, cen))[:2],
+             [mqsp, msup4, cen],
+             lambda outs: visited(ts._launch_ring(mqsp, msup4, k, cen,
+                                                  ts.UNROLL, True)[2])),
+        Case("knn_ring_stats", tag,
+             lambda impl: (ts.knn_ring_stats_cuda(qsp, sup4, k)
+                           if impl == "cuda" else
+                           ts.knn_ring_torch(qsp, sup4, k, stats=True)),
+             [qsp, sup4], lambda outs: visited(outs[2])),
+    ]
+    hb, hn = HEAD["b"], HEAD["n"]
+    band_ops = DIST_FLOPS * hb * hn * 3 * ns.TB
+    crng = np.random.default_rng(SEED + 11)
+    ragged = [crng.integers(hn // 2, hn + 1, hb).tolist() for _ in range(2)]
+    for label, valid in (("75% valid", None), ("ragged 50-100% valid",
+                                                ragged)):
+        ps, gs, c1, c2, _, _ = masked_head_clouds(torch, dev, valid)
+        for way, (a, o, c) in (("p->q", (ps, gs, c1)),
+                               ("q->p", (gs, ps, c2))):
+            cases.append(Case(
+                "nn_band_dynamic", f"masked headline B{hb} N=M={hn} "
+                f"{label} {way}",
+                lambda impl, a=a, o=o, c=c: ns.band_min_dynamic(a, o, c,
+                                                                impl=impl),
+                [a, o, c], band_ops))
+    return cases
+
+
+def check_ring_equals_stream(torch, dev):
+    """The reference's at-scale checks, which never ran on a TPU-less
+    machine: K9 and K10 against the streaming kernel (K8) at B=4 N=16384
+    with forced duplicate ties, K10 at ragged valid counts; indices
+    identical, distances bitwise, no invalid point returned."""
+    from pytorch_points_tpu_torch.core.masking import poison_points
+    from pytorch_points_tpu_torch.kernels import topk_scan as ts
+
+    b, n, k = RING_CHECK["b"], RING_CHECK["n"], RING_CHECK["k"]
+    x = cloud(np.random.default_rng(SEED + 12), b, n)
+    x[:, 1000:1128] = x[:, :128]  # forced duplicate ties
+    x = torch.from_numpy(x).to(dev)
+    valid = prefix_mask(torch, b, n, dev, list(RING_VALID))
+    xp = poison_points(x, valid, -1.0)
+    with torch.inference_mode():
+        for label, sup, masked in (("K9", x, False), ("K10", xp, True)):
+            ring = ts.knn(x, sup, k, impl="cuda", masked=masked)
+            stream = ts.knn(x, sup, k, impl="cuda", sorted_ok=False)
+            for g, r in zip(ring, stream, strict=True):
+                if g.dtype != r.dtype or not torch.equal(g, r):
+                    fail(f"{label} differs from K8 at B={b} N={n}")
+        if not (ring[1] < torch.tensor(RING_VALID, device=dev)[:, None,
+                                                                None]).all():
+            fail("K10 returned a poisoned support point")
+    print(f"K9 == K8 and K10 == K8 at B={b} N={n} k={k} with 128 forced "
+          f"duplicates, K10 at valid counts {RING_VALID} (bitwise)")
 
 
 def check_k6_equals_k5(torch, dev):
@@ -412,12 +642,14 @@ def timed_plain(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def hold_against_plain(torch, name, label, fn, stats, bound=None):
+def hold_against_plain(torch, case, stats):
     """One kernel call against one plain call, dtype and shape equal: every
-    output bitwise equal or, with a ``bound``, the first within it of the
-    plain version's and bitwise equal across two launches. Then kernel ms
-    from CUDA events, plain ms from CUDA events or, past PLAIN_SINGLE_MS,
-    the one call on the host clock. Returns the kernel's outputs."""
+    output bitwise equal or, with a ``case.bound``, the first within it of
+    the plain version's and bitwise equal across two launches. Then kernel
+    ms from CUDA events, plain ms from CUDA events or, past
+    PLAIN_SINGLE_MS, the one call on the host clock; the case's bound and
+    its library call's ms. Returns the kernel's outputs."""
+    name, label, fn, bound = case.name, case.label, case.fn, case.bound
     got = fn("cuda")
     ref, plain_ms = timed_plain(torch, lambda: fn("torch"))
     got = got if isinstance(got, tuple) else (got,)
@@ -442,12 +674,17 @@ def hold_against_plain(torch, name, label, fn, stats, bound=None):
     ms = cuda_ms(torch, lambda: fn("cuda"))
     if plain_ms < PLAIN_SINGLE_MS:
         plain_ms = cuda_ms(torch, lambda: fn("torch"))
-    print(f"{name:11s} {label:46s} {verdict}  max_abs_err={err!r}  kernel "
-          f"{ms!r} ms  plain {plain_ms!r} ms")
+    ops = case.ops(got) if callable(case.ops) else case.ops
+    b_ms, b_by = bound_ms(nbytes(case.inputs) + nbytes(got), ops)
+    lib_ms = None if case.library is None else cuda_ms(torch, case.library)
+    print(f"{name:15s} {label:52s} {verdict}  max_abs_err={err!r}  kernel "
+          f"{ms!r} ms  plain {plain_ms!r} ms  bound {b_ms!r} ms ({b_by}, "
+          f"{ops!r} flops)  library {lib_ms!r} ms")
     s = stats[name]
     s["max_abs_err"] = max(s["max_abs_err"], err)
     if "ms" not in s:  # the JSON line reports each kernel's 1st case
-        s["ms"], s["plain_ms"] = ms, plain_ms
+        s.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 library_ms=lib_ms)
     return got
 
 
@@ -492,7 +729,10 @@ def check_emd_kernels(torch, dev, stats):
             return run(pp, qp, eps_k, ladders, hint, 256, True)
 
         tag = f"{label}, hint {bool(hint)}"
-        owner, price = hold_against_plain(torch, "auction", tag, k11, stats)
+        # the least any exact assignment needs: every benefit once
+        owner, price = hold_against_plain(torch, Case(
+            "auction", tag, k11, [pp, qp],
+            DIST_FLOPS * pp.shape[0] * n_pad * n_pad), stats)
         left = (owner < 0).sum(1).float()
         print(f"            stragglers after K11: mean {left.mean().item()!r}"
               f" max {left.max().item()!r} per cloud")
@@ -503,8 +743,10 @@ def check_emd_kernels(torch, dev, stats):
                     auction.augment_torch)
                 return run(owner, price, pp, qp, EMD_EPS, pop, cap)
 
-            done, _ = hold_against_plain(torch, "augment", f"{label}, pop {pop}",
-                                 k12, stats)
+            # the least: one full row of benefits per straggler
+            done, _ = hold_against_plain(torch, Case(
+                "augment", f"{label}, pop {pop}", k12, [owner, price, pp, qp],
+                DIST_FLOPS * n_pad * (owner < 0).sum().item()), stats)
             if not (torch.sort(done, 1).values == torch.arange(
                     n_pad, device=dev, dtype=torch.int32)).all():
                 fail(f"augment [{label}]: owners are not a permutation")
@@ -519,12 +761,14 @@ def phase_kernels(torch, dev):
     rng = np.random.default_rng(SEED)
     stats = {name: {"max_abs_err": 0.0} for name in KERNELS}
     with torch.inference_mode():
-        cases = [(*c, None) for c in kernel_cases(torch, rng, dev)]
+        cases = kernel_cases(torch, rng, dev)
         cases += training_kernel_cases(torch, rng, dev)
-        for name, label, fn, bound in cases:
-            hold_against_plain(torch, name, label, fn, stats, bound)
+        cases += ring_kernel_cases(torch, dev)
+        for case in cases:
+            hold_against_plain(torch, case, stats)
         check_emd_kernels(torch, dev, stats)
     check_k6_equals_k5(torch, dev)
+    check_ring_equals_stream(torch, dev)
     return stats
 
 
@@ -691,10 +935,11 @@ def phase_train(torch, dev, wrappers):
     return launches, calls
 
 
-def headline_terms(pred, gt, impl):
+def headline_terms(pred, gt, impl, pm=None, gm=None):
     """The JAX package's graded headline (bench.py) in two terms: the
     chamfer distance, and the FPS + ball query + group term (the mean
-    squared offset of each group from its centroid)."""
+    squared offset of each group from its centroid). With masks, its
+    masked form (p_mask ``pm``, q_mask ``gm``)."""
     from pytorch_points_tpu_torch.ops import (
         ball_query,
         chamfer_distance,
@@ -702,31 +947,64 @@ def headline_terms(pred, gt, impl):
         group_points,
     )
 
-    cen, _ = furthest_point_sample_and_gather(pred, HEAD["p"], impl=impl)
-    nidx, _ = ball_query(pred, cen, RADIUS1, NSAMPLE, impl=impl)
+    cen, _ = furthest_point_sample_and_gather(pred, HEAD["p"], mask=pm,
+                                              impl=impl)
+    nidx, _ = ball_query(pred, cen, RADIUS1, NSAMPLE, mask=pm, impl=impl)
     centered = group_points(pred, nidx, impl) - cen[:, :, None, :]
-    return chamfer_distance(pred, gt, impl=impl), (centered**2).mean()
+    return (chamfer_distance(pred, gt, pm, gm, impl=impl),
+            (centered**2).mean())
 
 
-def phase_headline(torch, dev, wrappers):
+def masked_candidate_shares(torch, dev):
+    """Each direction's share of candidate tile pairs on the masked
+    headline's clouds, as nndistance_indexed_masked builds them."""
+    from pytorch_points_tpu_torch.kernels import nn_sorted as ns
+
+    ps, gs, c1, c2, _, _ = masked_head_clouds(torch, dev)
+    shares = []
+    with torch.inference_mode():
+        for a, o, c in ((ps, gs, c1), (gs, ps, c2)):
+            valid = a[..., 0].abs() < 2.0e4
+            d_ub = torch.where(valid, ns.band_min_dynamic(a, o, c), -1.0)
+            cand = ns._cand_mask(a, o, d_ub, ns.FT, ns.TN, ns.TM)
+            shares.append(cand.float().mean().item())
+    return shares
+
+
+def phase_headline(torch, dev, wrappers, masked=False):
     from pytorch_points_tpu_torch.ops import chamfer_path
 
     b, n, p = HEAD["b"], HEAD["n"], HEAD["p"]
-    print(f"== phase 5: headline FPS {n}->{p} + ball query (r={RADIUS1}, "
-          f"ns={NSAMPLE}) + group + chamfer, forward and backward, B={b}")
-    rng = np.random.default_rng(SEED + 3)
-    gt = torch.from_numpy(cloud(rng, b, n)).to(dev)
-    pred = torch.from_numpy(head_pred(rng)).to(dev)
-    path = chamfer_path(pred, gt, reduction="mean")
+    what = "masked headline" if masked else "headline"
+    print(f"== phase {10 if masked else 5}: {what} FPS {n}->{p} + ball query "
+          f"(r={RADIUS1}, ns={NSAMPLE}) + group + chamfer, forward and "
+          f"backward, B={b}" + (f", {VALID_SHARE:.0%} prefix-valid "
+                                "p_mask = q_mask" if masked else ""))
+    if masked:
+        _, _, _, _, pm, gm = masked_head_clouds(torch, dev)
+        rng = np.random.default_rng(SEED + 10)
+        pred = torch.from_numpy(head_pred(rng)).to(dev)
+        gt = torch.from_numpy(cloud(rng, b, n)).to(dev)
+        want = "sorted_masked"
+    else:
+        rng = np.random.default_rng(SEED + 3)
+        gt = torch.from_numpy(cloud(rng, b, n)).to(dev)
+        pred = torch.from_numpy(head_pred(rng)).to(dev)
+        pm = gm = None
+        want = "sorted_loss"
+    path = chamfer_path(pred, gt, pm, gm, reduction="mean")
     print(f"chamfer_path: {path}")
-    if path != "sorted_loss":
-        fail(f"headline: chamfer took the {path} path, not sorted_loss")
+    if path != want:
+        fail(f"{what}: chamfer took the {path} path, not {want}")
+    if masked:
+        s1, s2 = masked_candidate_shares(torch, dev)
+        print(f"candidate tile pairs, share of all: p->q {s1!r}, q->p {s2!r}")
 
     def values_and_grads(impl):
         """(loss, group term) and their grads in pred. The loss weighs the
         group term by 1e-6, so its grad is held on its own, at weight 1."""
         x = pred.clone().requires_grad_()
-        cd, group = headline_terms(x, gt, impl)
+        cd, group = headline_terms(x, gt, impl, pm, gm)
         loss = cd + HEAD_GROUP_WEIGHT * group
         g_group, = torch.autograd.grad(group, x, retain_graph=True)
         g_loss, = torch.autograd.grad(loss, x)
@@ -734,25 +1012,27 @@ def phase_headline(torch, dev, wrappers):
 
     v_k, g_k = values_and_grads("cuda")  # uncounted: held against plain
     v_p, g_p = values_and_grads("torch")
-    for what, vk, vp, gk, gp in zip(("loss", "group term"), v_k, v_p, g_k,
+    for term, vk, vp, gk, gp in zip(("loss", "group term"), v_k, v_p, g_k,
                                     g_p, strict=True):
         gap = grad_gap([gk], [gp])
-        print(f"headline {what}: kernels {vk!r} plain {vp!r}; pred grad max "
+        print(f"{what} {term}: kernels {vk!r} plain {vp!r}; pred grad max "
               f"|kernels - plain| / max |plain| = {gap!r} "
               f"(bar {HEAD_GRAD_TOL})")
         if not (np.isfinite(vk) and torch.isfinite(gk).all()
                 and gk.shape == pred.shape):
-            fail(f"headline {what}: non-finite value or grad")
+            fail(f"{what} {term}: non-finite value or grad")
         if gap > HEAD_GRAD_TOL or abs(vk - vp) > 1e-6 * abs(vp):
-            fail(f"headline {what}: value or grad differs from the plain "
+            fail(f"{what} {term}: value or grad differs from the plain "
                  "versions")
+        if masked and (gk[~pm] != 0).any():
+            fail(f"{what} {term}: a padded point has a grad")
     times = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
 
     def call():
         x = pred.clone().requires_grad_()
-        cd, group = headline_terms(x, gt, "auto")
+        cd, group = headline_terms(x, gt, "auto", pm, gm)
         loss = cd + HEAD_GROUP_WEIGHT * group
         loss.backward()
         return loss.item()  # waits for the forward
@@ -764,11 +1044,79 @@ def phase_headline(torch, dev, wrappers):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
 
-    launches = drive(wrappers, HEAD_KERNELS, "headline", headline)
-    print(f"headline median {statistics.median(times)!r} ms per call "
+    launches = drive(wrappers, HEAD_MASKED_KERNELS if masked else
+                     HEAD_KERNELS, what, headline)
+    print(f"{what} median {statistics.median(times)!r} ms per call "
           f"(value and grad) over {len(times)} calls: {times}; peak device "
           f"memory {torch.cuda.max_memory_allocated(dev)} bytes")
-    return [launches], {f"headline B={b} N={n} P={p}": call}
+    return [launches], {f"{what} B={b} N={n} P={p}": call}
+
+
+def phase_knn(torch, dev, wrappers, masked=False):
+    """Config 6 (or 6m, with 75% prefix-valid support masks): ops.knn(x,
+    x, 16) at B=16 N=16384, the Morton-ring path; then, unmasked, the ring
+    stats twin on the same clouds."""
+    from pytorch_points_tpu_torch.kernels import topk_scan
+    from pytorch_points_tpu_torch.ops import knn, knn_path
+
+    b, n, k = CONFIG6["b"], CONFIG6["n"], CONFIG6["k"]
+    cfg = "config 6m" if masked else "config 6"
+    print(f"== phase {9 if masked else 8}: {cfg}, knn(x, x, {k}) at B={b} "
+          f"N={n}" + (f", {VALID_SHARE:.0%} prefix-valid support masks"
+                      if masked else ""))
+    x = torch.from_numpy(cloud(np.random.default_rng(SEED + 9), b, n)).to(dev)
+    mask = prefix_mask(torch, b, n, dev) if masked else None
+    path = knn_path(x, x, k, mask)
+    print(f"knn_path: {path}")
+    if path != ("ring_masked" if masked else "ring"):
+        fail(f"{cfg}: kNN took the {path} path")
+    times, outs = [], []
+
+    def run():
+        for _ in range(KNN_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(knn(x, x, k, support_mask=mask))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+
+    with torch.inference_mode():
+        knn(x, x, k, support_mask=mask)  # warm-up, uncounted
+        counts = [drive(wrappers, ("knn_ring_masked",) if masked else
+                        ("knn_ring",), cfg, run)]
+        d, i = outs[0]
+        ref = knn(x, x, k, support_mask=mask, impl="torch")
+        if d.shape != (b, n, k) or not torch.isfinite(d).all():
+            fail(f"{cfg}: bad output {tuple(d.shape)} / non-finite")
+        if not (torch.equal(d, ref[0]) and torch.equal(i, ref[1])):
+            fail(f"{cfg}: kernels differ from the plain versions")
+        if not all(torch.equal(o[1], i) for o in outs):
+            fail(f"{cfg}: two calls on the same clouds differ")
+        if masked and not (i < int(n * VALID_SHARE)).all():
+            fail(f"{cfg}: an invalid support point was returned")
+        print(f"{cfg} median {statistics.median(times)!r} ms per call over "
+              f"{len(times)} calls: {times}; equal to the plain versions; "
+              f"mean k-th distance {d[..., -1].mean().item()!r}")
+        if not masked:
+            got = []
+            counts.append(drive(
+                wrappers, ("knn_ring_stats",), "config 6 ring stats",
+                lambda: got.append(topk_scan.knn_ring_stats(x, x, k))))
+            plain = topk_scan.knn_ring_stats(x, x, k, impl="torch")
+            if got[0][2] != plain[2] or not torch.equal(got[0][1], i):
+                fail(f"ring stats differ from the plain version: {got[0][2]}"
+                     f" vs {plain[2]}")
+            st = got[0][2]
+            print(f"ring stats at {cfg} (equal to the plain version's): "
+                  f"visit rate {st['visit_rate']!r}, steps per visit "
+                  f"{st['steps_per_visit']!r}, trips per visit "
+                  f"{st['trips_per_visit']!r}, {st['chunks']} chunks")
+
+    def call():
+        with torch.inference_mode():
+            return knn(x, x, k, support_mask=mask)[0].sum().item()
+
+    return counts, {f"{cfg} knn B={b} N={n} k={k}": call}
 
 
 def check_assignment(torch, label, p, q, dist, assign):
@@ -922,16 +1270,10 @@ def profile_path(torch, label, fn, calls=5):
               f"{e.count / calls:7.1f}/call  {e.key[:90]}")
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 1
-    if not (ROOT / "pytorch_points_tpu_torch" / "csrc").is_dir():
-        print("chip_smoke: run from the root of a checkout of the repository",
-              file=sys.stderr)
-        return 1
+def import_port():
+    """Put the checkout first on the path and import the port's kernel
+    modules (nothing of JAX). Returns (the build module, each kernel's
+    launching wrapper by its name in KERNELS)."""
     sys.path.insert(0, str(ROOT))
     from pytorch_points_tpu_torch.kernels import (
         _build,
@@ -945,6 +1287,35 @@ def main() -> int:
         topk_scan,
     )
 
+    wrappers = {"fps": fps.fps_cuda, "ball_query": ballquery.ball_query_cuda,
+                "gather": gather.gather_rows_cuda, "knn": topk_scan.knn_cuda,
+                "scatter": scatter.scatter_add_cuda,
+                "nn_dense": distance_tiles.nn_one_direction_cuda,
+                "nn_band": nn_sorted.band_min_cuda,
+                "nn_band_dynamic": nn_sorted.band_min_dynamic_cuda,
+                "nn_resident": nn_sorted.nn_resident_cuda,
+                "knn_ring": topk_scan.knn_ring_cuda,
+                "knn_ring_masked": topk_scan.knn_ring_masked_cuda,
+                "knn_ring_stats": topk_scan.knn_ring_stats_cuda,
+                "auction": auction.auction_cuda,
+                "augment": auction.augment_cuda}
+    if wrappers.keys() != KERNELS.keys():
+        raise RuntimeError("chip_smoke: KERNELS and the wrappers disagree")
+    return _build, wrappers
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    if not (ROOT / "pytorch_points_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: run from the root of a checkout of the repository",
+              file=sys.stderr)
+        return 1
+    build, wrappers = import_port()
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
@@ -956,26 +1327,20 @@ def main() -> int:
 
     print("== phase 1: build")
     t0 = time.perf_counter()
-    _build.library()
+    build.library()
     print(f"built kernels in {time.perf_counter() - t0!r} s into "
-          f"{_build.BUILD_DIR.relative_to(ROOT)}")
+          f"{build.BUILD_DIR.relative_to(ROOT)}")
 
-    wrappers = {"fps": fps.fps_cuda, "ball_query": ballquery.ball_query_cuda,
-                "gather": gather.gather_rows_cuda, "knn": topk_scan.knn_cuda,
-                "scatter": scatter.scatter_add_cuda,
-                "nn_dense": distance_tiles.nn_one_direction_cuda,
-                "nn_band": nn_sorted.band_min_cuda,
-                "nn_resident": nn_sorted.nn_resident_cuda,
-                "auction": auction.auction_cuda,
-                "augment": auction.augment_cuda}
     stats = phase_kernels(torch, dev)
     paths, calls = [], {}
     for phase in (phase_serve, phase_train, phase_headline, phase_emd,
-                  phase_metrics):
+                  phase_metrics, phase_knn,
+                  functools.partial(phase_knn, masked=True),
+                  functools.partial(phase_headline, masked=True)):
         counts, fns = phase(torch, dev, wrappers)
         paths += counts
         calls.update(fns)
-    print("== phase 8: profile one call of each main path")
+    print("== phase 11: profile one call of each main path")
     for label, fn in calls.items():
         profile_path(torch, label, fn)
 

@@ -9,5 +9,6 @@ at their first launch (``_build.library``).
 # Ops whose CUDA kernel has landed; dispatch.resolve refuses the others on
 # CUDA tensors rather than fall back to the plain version.
 AVAILABLE = frozenset({"fps", "ball_query", "gather", "knn", "scatter",
-                       "nn_dense", "nn_band", "nn_resident", "auction",
-                       "augment"})
+                       "nn_dense", "nn_band", "nn_band_dynamic",
+                       "nn_resident", "knn_ring", "knn_ring_masked",
+                       "knn_ring_stats", "auction", "augment"})

@@ -39,6 +39,9 @@ _SIGNATURES = {
     "ppt_gather_rows": [_P, _P, _I, _I, _I, _I, _P, _P],
     # qry, sup, b, nq, ns, k, out_d, out_i, stream
     "ppt_knn": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # qry, sup, centers, b, q_pad, m_pad, k, k_pad, unroll, out_d, out_i,
+    # stats, stream
+    "ppt_knn_ring": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # updates, order, offsets, rows, c, out, stream
     "ppt_scatter_rows": [_P, _P, _P, _I, _I, _P, _P],
     # p, q, b, n, m, out_d, out_i, stream

@@ -1,10 +1,13 @@
 """Morton-sorted, bound-pruned nearest neighbour (kernel K6: band pass and
-resident NN scan).
+resident NN scan; kernel K7: the band pass with per-tile window centres,
+for masked clouds).
 
 CUDA kernels: ``csrc/nn_sorted.cu``, which replaces the TPU kernels
-``pytorch_points_tpu/kernels/nn_sorted.py::_band_kernel`` (``band_min``)
-and ``::_nn_resident_kernel`` (``_run_resident``). The header note there
-says what bounds them on the card and why no worklist budget is needed.
+``pytorch_points_tpu/kernels/nn_sorted.py::_band_kernel`` (``band_min``),
+``::_band_kernel_pf`` (``band_min_dynamic``, the same kernel given a
+centre table) and ``::_nn_resident_kernel`` (``_run_resident``). The header
+note there says what bounds them on the card and why no worklist budget is
+needed.
 
 The pipeline, as in the JAX package: sort both clouds along a Morton curve
 (stable, so the permutation is the reference's); pad them with poison to
@@ -13,7 +16,9 @@ mark the (p-tile, q-tile) pairs whose AABB lower bound does not exceed the
 bound of some point of the p-tile (``_cand_mask``, torch ops); scan only
 those pairs. The scan carries each point's ORIGINAL index and keeps the
 lowest on ties, so its results equal the dense kernel (K5) on the original
-clouds, distances and indices bitwise.
+clouds, distances and indices bitwise. Masked (poisoned) clouds take
+:func:`nndistance_indexed_masked`: valid points sorted over the valid
+AABB with the poison last, and band windows centred by the valid counts.
 """
 
 from __future__ import annotations
@@ -35,13 +40,8 @@ TN, TM, FT, TB, TBQ, STRIDE = 512, 64, 64, 512, 128, 4
 SENTINEL = 2**30  # index of a row that saw no candidate (reference value)
 
 
-def _morton_codes(xyz: torch.Tensor, bits: int = 10) -> torch.Tensor:
-    """[B,N,3] -> [B,N] int64 Morton codes over each cloud's AABB, in the
-    reference's operation order (its uint32 codes, held in int64)."""
-    lo = xyz.amin(dim=1, keepdim=True)
-    hi = xyz.amax(dim=1, keepdim=True)
-    t = (xyz - lo) / torch.clamp_min(hi - lo, 1e-12)
-    q = (t * (2**bits - 1)).to(torch.int64).clamp_(0, 2**bits - 1)
+def _interleave(q: torch.Tensor) -> torch.Tensor:
+    """[B,N,3] int64 cells of 10 bits -> [B,N] Morton codes."""
 
     def spread(v):  # spread 10 bits to every 3rd bit
         v = (v | (v << 16)) & 0x030000FF
@@ -53,12 +53,54 @@ def _morton_codes(xyz: torch.Tensor, bits: int = 10) -> torch.Tensor:
         spread(q[..., 2]) << 2)
 
 
+def _morton_codes(xyz: torch.Tensor, bits: int = 10) -> torch.Tensor:
+    """[B,N,3] -> [B,N] int64 Morton codes over each cloud's AABB, in the
+    reference's operation order (its uint32 codes, held in int64)."""
+    lo = xyz.amin(dim=1, keepdim=True)
+    hi = xyz.amax(dim=1, keepdim=True)
+    t = (xyz - lo) / torch.clamp_min(hi - lo, 1e-12)
+    return _interleave((t * (2**bits - 1)).to(torch.int64).clamp_(
+        0, 2**bits - 1))
+
+
+_INVALID_CODE = 0xFFFFFFFF  # the reference's max uint32 key: invalid last
+
+
+def _morton_codes_masked(xyz: torch.Tensor, valid: torch.Tensor,
+                         bits: int = 10) -> torch.Tensor:
+    """Morton codes over the VALID points' AABB; invalid points get the max
+    key, so they sort last. Poison coordinates would otherwise stretch the
+    AABB until every valid point falls in one cell. The cell is clipped to
+    [0, 2^bits - 1] before the integer cast, as the reference does."""
+    v = valid[..., None]
+    lo = torch.where(v, xyz, float("inf")).amin(dim=1, keepdim=True)
+    hi = torch.where(v, xyz, float("-inf")).amax(dim=1, keepdim=True)
+    t = (xyz - lo) / torch.clamp_min(hi - lo, 1e-12)
+    q = torch.clamp(t * (2**bits - 1), 0.0, float(2**bits - 1))
+    code = _interleave(q.to(torch.int64))
+    return torch.where(valid, code, _INVALID_CODE)
+
+
+def _sort_by_codes(x: torch.Tensor, code: torch.Tensor):
+    perm = torch.sort(code, dim=1, stable=True).indices
+    return x.gather(1, perm[..., None].expand_as(x)), perm
+
+
 def sort_by_morton(x: torch.Tensor):
     """[B,N,3] -> (sorted [B,N,3], perm [B,N] int32), sorted = x[perm]; a
     stable sort, as ``jax.lax.sort`` is."""
     x = x.to(torch.float32)
-    perm = torch.sort(_morton_codes(x), dim=1, stable=True).indices
-    return x.gather(1, perm[..., None].expand_as(x)), perm.to(torch.int32)
+    xs, perm = _sort_by_codes(x, _morton_codes(x))
+    return xs, perm.to(torch.int32)
+
+
+def sort_by_morton_masked(x: torch.Tensor, valid: torch.Tensor):
+    """Masked variant: valid points in Morton order of the valid AABB,
+    invalid (poisoned) points moved to the end, stable within each group.
+    Returns (sorted [B,N,3], perm [B,N] int32, sorted_valid [B,N] bool)."""
+    x = x.to(torch.float32)
+    xs, perm = _sort_by_codes(x, _morton_codes_masked(x, valid))
+    return xs, perm.to(torch.int32), valid.gather(1, perm)
 
 
 def _round_up(v: int, m: int) -> int:
@@ -114,9 +156,8 @@ def band_min_torch(ps: torch.Tensor, qsub: torch.Tensor, tb: int, tbq: int,
     return out
 
 
-def band_min_cuda(ps: torch.Tensor, qsub: torch.Tensor, tb: int, tbq: int,
-                  centers: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch the band kernel: same contract as :func:`band_min_torch`."""
+def _launch_band(ps: torch.Tensor, qsub: torch.Tensor, tb: int, tbq: int,
+                 centers: torch.Tensor | None) -> torch.Tensor:
     b, n, _ = ps.shape
     mq = qsub.shape[1]
     ni = n // tb
@@ -130,6 +171,13 @@ def band_min_cuda(ps: torch.Tensor, qsub: torch.Tensor, tb: int, tbq: int,
         tbq, out.data_ptr(), _build.stream(ps),
     )
     _build.check(err, "ppt_nn_band")
+    return out
+
+
+def band_min_cuda(ps: torch.Tensor, qsub: torch.Tensor, tb: int,
+                  tbq: int) -> torch.Tensor:
+    """Launch the band kernel: same contract as :func:`band_min_torch`."""
+    out = _launch_band(ps, qsub, tb, tbq, None)
     band_min_cuda.launches += 1
     return out
 
@@ -137,16 +185,27 @@ def band_min_cuda(ps: torch.Tensor, qsub: torch.Tensor, tb: int, tbq: int,
 band_min_cuda.launches = 0
 
 
+def band_min_dynamic_cuda(ps: torch.Tensor, qs: torch.Tensor,
+                          centers: torch.Tensor, tb: int) -> torch.Tensor:
+    """Launch the band kernel with a centre table (K7): same contract as
+    ``band_min_torch(ps, qs, tb, tb, centers)``; its own launch count."""
+    out = _launch_band(ps, qs, tb, tb, centers)
+    band_min_dynamic_cuda.launches += 1
+    return out
+
+
+band_min_dynamic_cuda.launches = 0
+
+
 def band_min(ps: torch.Tensor, qs: torch.Tensor, tb: int = TB,
-             tbq: int | None = None, stride: int = 1,
-             centers: torch.Tensor | None = None, impl: str = "auto"):
+             tbq: int | None = None, stride: int = 1, impl: str = "auto"):
     """Per-point min d^2 over a ~3-tile rank window of the (sorted) other
     cloud: an upper bound on each point's NN distance.
 
     ``ps`` [B,n,>=3] with n a multiple of ``tb``; ``qs`` [B,m,>=3] is
     subsampled by ``stride`` and cut to whole ``tbq`` tiles first, as the
     reference does. The window of p-tile i is q-tiles clamp(c + {-1,0,+1})
-    with c = i * njq // ni, or ``centers`` [B, ni] (masked clouds).
+    with c = i * njq // ni (masked clouds: :func:`band_min_dynamic`).
     """
     tbq = tb if tbq is None else tbq
     qs = qs[:, ::stride, :3]
@@ -156,11 +215,38 @@ def band_min(ps: torch.Tensor, qs: torch.Tensor, tb: int = TB,
         raise ValueError(f"band_min: n={ps.shape[1]} must be a multiple of "
                          f"tb={tb} and q must hold a whole tbq={tbq} tile")
     if dispatch.resolve(impl, ps, "nn_band") == "cuda":
-        if centers is not None:
-            centers = centers.to(torch.int32).contiguous()
-        return band_min_cuda(ps.contiguous(), qs.contiguous(), tb, tbq,
-                             centers)
-    return band_min_torch(ps, qs, tb, tbq, centers)
+        return band_min_cuda(ps.contiguous(), qs.contiguous(), tb, tbq)
+    return band_min_torch(ps, qs, tb, tbq)
+
+
+def _band_centers(vp: torch.Tensor, vq: torch.Tensor, ni: int, njq: int,
+                  tb: int) -> torch.Tensor:
+    """[B, nI] int32 q-tile centres aligning the clouds' VALID rank ranges:
+    p-rank r maps to q-rank r * vq / vp, and p-tile i's window is the q-tile
+    holding its centre rank, +/- 1 (clamped). In float32, in the reference's
+    order of operations. Only the bound's tightness depends on it."""
+    r = (torch.arange(ni, dtype=torch.float32, device=vp.device) + 0.5) * tb
+    ratio = vq.to(torch.float32) / torch.clamp_min(vp.to(torch.float32), 1.0)
+    qrank = r[None, :] * ratio[:, None]
+    return torch.clamp((qrank / tb).to(torch.int32), 0, njq - 1)
+
+
+def band_min_dynamic(ps: torch.Tensor, qs: torch.Tensor,
+                     centers: torch.Tensor, tb: int = TB,
+                     impl: str = "auto") -> torch.Tensor:
+    """The band bound with per-(b, i) window centres ``centers`` [B, nI]
+    (masked clouds, whose valid ranges fill different shares of the padded
+    rank space): windows of ``tb`` q points, no subsampling. ``ps`` and
+    ``qs`` [B, n|m, >=3] with n and m multiples of ``tb``."""
+    ps, qs = ps[..., :3], qs[..., :3]
+    if ps.shape[1] % tb or qs.shape[1] % tb:
+        raise ValueError(f"band_min_dynamic: n={ps.shape[1]} and "
+                         f"m={qs.shape[1]} must be multiples of tb={tb}")
+    if dispatch.resolve(impl, ps, "nn_band_dynamic") == "cuda":
+        return band_min_dynamic_cuda(ps.contiguous(), qs.contiguous(),
+                                     centers.to(torch.int32).contiguous(),
+                                     tb)
+    return band_min_torch(ps, qs, tb, tb, centers)
 
 
 # ---------------------------------------------------------------------------
@@ -330,6 +416,53 @@ def nndistance_indexed(p: torch.Tensor, q: torch.Tensor, impl: str = "auto"):
     d1s, i1s, d2s, i2s = _nn_sorted_space(ps, perm_p, qs, perm_q, impl)
     d1, i1 = _unpermute_rows(perm_p, d1s, i1s, n, impl)
     d2, i2 = _unpermute_rows(perm_q, d2s, i2s, m, impl)
+    return d1, i1, d2, i2
+
+
+def nndistance_indexed_masked(p: torch.Tensor, q: torch.Tensor,
+                              impl: str = "auto"):
+    """As :func:`nndistance_indexed` for POISONED clouds
+    (``core.masking.poison_points``): validity is |x0| < BIG_COORD, valid
+    points sort over the valid AABB with the poison last, and the band
+    windows (``tb`` points, no subsampling) align the two valid rank ranges
+    through per-tile centres (K7). Poisoned rows emit no candidates (their
+    bound is -1) and come out as (0, 0); valid rows equal the dense kernel
+    on the same poisoned clouds, ties included.
+
+    The reference runs its resident scan over a compacted pair list of
+    static size and, past that budget, falls back to the dense kernel with
+    a ``lax.cond``. The port's resident kernel reads the candidate mask
+    directly and needs no budget, so that fallback has no counterpart."""
+    p = p.to(torch.float32)
+    q = q.to(torch.float32)
+    n, m = p.shape[1], q.shape[1]
+    pv = p[..., 0].abs() < BIG_COORD
+    qv = q[..., 0].abs() < BIG_COORD
+    ps, perm_p, pvs = sort_by_morton_masked(p, pv)
+    qs, perm_q, qvs = sort_by_morton_masked(q, qv)
+    align = max(TN, TM, TB)
+    n_pad, m_pad = _round_up(n, align), _round_up(m, align)
+    pp = _pad_poison(ps, n_pad, 1.0)
+    qp = _pad_poison(qs, m_pad, -1.0)
+    pvs = torch.nn.functional.pad(pvs, (0, n_pad - n))
+    qvs = torch.nn.functional.pad(qvs, (0, m_pad - m))
+    vp, vq = pv.sum(dim=1), qv.sum(dim=1)
+    c1 = _band_centers(vp, vq, n_pad // TB, m_pad // TB, TB)
+    c2 = _band_centers(vq, vp, m_pad // TB, n_pad // TB, TB)
+    d_ub1 = torch.where(pvs, band_min_dynamic(pp, qp, c1, TB, impl), -1.0)
+    d_ub2 = torch.where(qvs, band_min_dynamic(qp, pp, c2, TB, impl), -1.0)
+    cand1 = _cand_mask(pp, qp, d_ub1, FT, TN, TM)
+    cand2 = _cand_mask(qp, pp, d_ub2, FT, TN, TM)
+    d1s, i1s = nn_resident(pp, qp, _pad_ids(perm_q, m_pad), cand1, impl=impl)
+    d2s, i2s = nn_resident(qp, pp, _pad_ids(perm_p, n_pad), cand2, impl=impl)
+    # Poisoned rows saw no candidate and hold (inf, SENTINEL): (0, 0) before
+    # the un-permute, as the reference sets them, which is also the public
+    # contract of a masked row.
+    pvs, qvs = pvs[:, :n], qvs[:, :m]
+    d1, i1 = _unpermute_rows(perm_p, torch.where(pvs, d1s[:, :n], 0.0),
+                             torch.where(pvs, i1s[:, :n], 0), n, impl)
+    d2, i2 = _unpermute_rows(perm_q, torch.where(qvs, d2s[:, :m], 0.0),
+                             torch.where(qvs, i2s[:, :m], 0), m, impl)
     return d1, i1, d2, i2
 
 

@@ -34,12 +34,16 @@ class SharedMLP(nn.Module):
     JAX parameter tree.
 
     norm: None | "layer" (LayerNorm, eps 1e-6 as in flax).
+
+    Weights are drawn from ``generator`` (seed 0 when None) on the CPU, then
+    moved to ``device``, the card unless the caller names another device;
+    without a card the default raises, as ``.to("cuda")`` does.
     """
 
     def __init__(self, channels: Sequence[int], *,
                  activation: Callable = torch.relu,
                  norm: str | None = "layer", act_last: bool = True,
-                 device=None, generator: torch.Generator | None = None):
+                 device="cuda", generator: torch.Generator | None = None):
         super().__init__()
         if len(channels) < 2:
             raise ValueError("channels must include input and output dims")

@@ -39,7 +39,7 @@ class PointNetSAModule(nn.Module):
                  npoint: int | None = None, radius: float | None = None,
                  nsample: int = 32, use_xyz: bool = True,
                  normalize_radius: bool = False, group_all: bool = False,
-                 norm: str | None = "layer", device=None,
+                 norm: str | None = "layer", device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
         self.npoint = npoint
@@ -72,7 +72,7 @@ class PointNetFPModule(nn.Module):
     """Feature propagation: 3-NN inverse-distance upsampling + skip + MLP."""
 
     def __init__(self, in_channels: int, mlp: Sequence[int], *,
-                 norm: str | None = "layer", device=None,
+                 norm: str | None = "layer", device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
         self.mlp = SharedMLP([in_channels, *mlp], norm=norm, device=device,

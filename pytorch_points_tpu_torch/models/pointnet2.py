@@ -25,7 +25,7 @@ class PointNet2Encoder(nn.Module):
     def __init__(self, npoint1: int = 512, npoint2: int = 128,
                  radius1: float = 0.2, radius2: float = 0.4,
                  nsample: int = 32, *, norm: str | None = "layer",
-                 device=None, generator: torch.Generator | None = None):
+                 device="cuda", generator: torch.Generator | None = None):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -50,11 +50,12 @@ class PointCloudAutoencoder(nn.Module):
 
     Reconstructs the input cloud as ``xyz + offsets``. Weights are drawn
     from ``generator`` (seed 0 when None) on the CPU, then moved to
-    ``device``; ``compat.load_jax_params`` loads the JAX model's instead.
+    ``device``, "cuda" unless the caller asks for another (``"cpu"``);
+    ``compat.load_jax_params`` loads the JAX model's instead.
     """
 
     def __init__(self, npoint1: int = 512, npoint2: int = 128, *,
-                 norm: str | None = "layer", device=None,
+                 norm: str | None = "layer", device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
         if generator is None:

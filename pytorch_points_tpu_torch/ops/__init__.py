@@ -6,9 +6,12 @@ from pytorch_points_tpu_torch.ops.chamfer import (
 from pytorch_points_tpu_torch.ops.emd import earth_mover_distance
 from pytorch_points_tpu_torch.ops.grouping import (
     ball_query,
+    duplicate_shadow_mask,
     group_all,
+    group_knn,
     group_points,
     knn,
+    knn_path,
     sample_and_group,
 )
 from pytorch_points_tpu_torch.ops.interpolate import (
@@ -28,14 +31,17 @@ __all__ = [
     "ball_query",
     "chamfer_distance",
     "chamfer_path",
+    "duplicate_shadow_mask",
     "earth_mover_distance",
     "furthest_point_sample",
     "furthest_point_sample_and_gather",
     "gather_points",
     "group_all",
+    "group_knn",
     "group_points",
     "interpolation_weights",
     "knn",
+    "knn_path",
     "nndistance",
     "pairwise_sqdist",
     "sample_and_group",

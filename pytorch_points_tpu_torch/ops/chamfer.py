@@ -9,10 +9,10 @@ scatters).
 Dispatch, as in the reference: at ``N, M >= _SORTED_MIN_POINTS`` unmasked
 clouds take the Morton-pruned scan (kernel K6, ``kernels/nn_sorted.py``):
 the loss-only form for a mean/sum ``chamfer_distance`` and the indexed form
-otherwise. Smaller clouds take the dense scan (kernel K5). Masked clouds
-take K5 on the poisoned clouds at every size until the masked band kernel
-(K7) is ported; on valid rows its outputs are those of the reference's
-masked sorted path.
+otherwise. Masked clouds of that size take the masked pruned scan
+(``nn_sorted.nndistance_indexed_masked``: the band with per-tile centres,
+kernel K7, then K6's resident scan) on the poisoned clouds. Smaller clouds,
+masked or not, take the dense scan (kernel K5).
 """
 
 from __future__ import annotations
@@ -27,17 +27,20 @@ from pytorch_points_tpu_torch.ops.scatter_impl import scatter_add_auto
 _SORTED_MIN_POINTS = 8192  # per-cloud size from which the sorted path runs
 
 
+_FORWARDS = {"dense": distance_tiles.nn_both_directions,
+             "sorted": nn_sorted.nndistance_indexed,
+             "sorted_masked": nn_sorted.nndistance_indexed_masked}
+
+
 class _NNDistance(torch.autograd.Function):
-    """Forward: bidirectional NN on the detached clouds, dense (K5) or
-    Morton-pruned (K6). Backward: the reference's rule, two row gathers and
-    two scatter-adds."""
+    """Forward: bidirectional NN on the detached clouds by ``route``: dense
+    (K5), Morton-pruned (K6) or masked Morton-pruned (K7 + K6). Backward:
+    the reference's rule, two row gathers and two scatter-adds."""
 
     @staticmethod
-    def forward(ctx, p, q, use_sorted, impl):
+    def forward(ctx, p, q, route, impl):
         p, q = p.detach(), q.detach()
-        nn = nn_sorted.nndistance_indexed if use_sorted else (
-            distance_tiles.nn_both_directions)
-        d1, i1, d2, i2 = nn(p, q, impl=impl)
+        d1, i1, d2, i2 = _FORWARDS[route](p, q, impl=impl)
         ctx.save_for_backward(p, q, i1, i2)
         ctx.impl = impl
         ctx.mark_non_differentiable(i1, i2)
@@ -111,11 +114,14 @@ def nndistance(p: torch.Tensor, q: torch.Tensor,
                          f"{tuple(q.shape)}")
     p = p.to(torch.float32)
     q = q.to(torch.float32)
+    sorted_ok = _sorted_size_ok(p, q)
     if p_mask is None and q_mask is None:
-        return _NNDistance.apply(p, q, _sorted_size_ok(p, q), impl)
+        return _NNDistance.apply(p, q, "sorted" if sorted_ok else "dense",
+                                 impl)
     pp = poison_points(p, p_mask, sign=1.0)
     qp = poison_points(q, q_mask, sign=-1.0)  # opposite side: mutually far
-    dist1, idx1, dist2, idx2 = _NNDistance.apply(pp, qp, False, impl)
+    dist1, idx1, dist2, idx2 = _NNDistance.apply(
+        pp, qp, "sorted_masked" if sorted_ok else "dense", impl)
     if p_mask is not None:
         dist1 = torch.where(p_mask, dist1, 0.0)
         idx1 = torch.where(p_mask, idx1, 0)
@@ -133,10 +139,12 @@ def chamfer_path(p: torch.Tensor, q: torch.Tensor,
                  reduction: str = "none") -> str:
     """Telemetry: which scan serves a chamfer/nndistance call with these
     arguments: "sorted_loss" (Morton-pruned, loss-only: the mean/sum
-    ``chamfer_distance`` path), "sorted" (Morton-pruned, indexed) or
-    "dense" (K5; every masked call until K7 is ported)."""
-    if p_mask is not None or q_mask is not None or not _sorted_size_ok(p, q):
+    ``chamfer_distance`` path), "sorted" (Morton-pruned, indexed),
+    "sorted_masked" (masked Morton-pruned, K7 + K6) or "dense" (K5)."""
+    if not _sorted_size_ok(p, q):
         return "dense"
+    if p_mask is not None or q_mask is not None:
+        return "sorted_masked"
     return "sorted_loss" if reduction in ("mean", "sum") else "sorted"
 
 

@@ -12,7 +12,10 @@ Reference semantics:
 
 Indices carry no gradient: the searches run on detached clouds. kNN
 distances are differentiable in both clouds with the neighbour set held
-constant, as the reference's ``custom_vjp`` has it.
+constant, as the reference's ``custom_vjp`` has it. A kNN over a support of
+``topk_scan.RING_MIN_NS`` points or more takes the Morton-ring scan (K9, or
+K10 for a masked support), a smaller one the streaming scan (K8):
+``knn_path`` names the route.
 """
 
 from __future__ import annotations
@@ -30,14 +33,15 @@ from pytorch_points_tpu_torch.ops.scatter_impl import scatter_add_auto
 
 
 class _Knn(torch.autograd.Function):
-    """Forward: exact kNN (K8) on the detached clouds. Backward, with the
-    neighbour set constant: the direct term into the queries and a
+    """Forward: exact kNN (K8, K9 or K10) on the detached clouds. Backward,
+    with the neighbour set constant: the direct term into the queries and a
     scatter-add (K4) into the support."""
 
     @staticmethod
-    def forward(ctx, query, support, k, impl):
+    def forward(ctx, query, support, k, masked, impl):
         query, support = query.detach(), support.detach()
-        dist, idx = topk_scan.knn(query, support, k, impl=impl)
+        dist, idx = topk_scan.knn(query, support, k, impl=impl,
+                                  masked=masked)
         ctx.save_for_backward(query, support, idx)
         ctx.impl = impl
         ctx.mark_non_differentiable(idx)
@@ -58,7 +62,7 @@ class _Knn(torch.autograd.Function):
                 flat, (-2.0 * gd[..., None] * diff).reshape(b, nq * k, -1),
                 support.shape[1], ctx.impl,
             )
-        return gq, gs, None, None
+        return gq, gs, None, None, None
 
 
 def knn(query: torch.Tensor, support: torch.Tensor, k: int,
@@ -72,7 +76,68 @@ def knn(query: torch.Tensor, support: torch.Tensor, k: int,
     constant.
     """
     support = poison_points(support, support_mask, sign=-1.0)
-    return _Knn.apply(query, support, k, impl)
+    return _Knn.apply(query, support, k, support_mask is not None, impl)
+
+
+def knn_path(query: torch.Tensor, support: torch.Tensor, k: int,
+             support_mask: torch.Tensor | None = None) -> str:
+    """Telemetry: which scan serves a ``knn`` call with these arguments:
+    "ring" (Morton-sorted, AABB chunk skip: K9), "ring_masked" (valid-AABB
+    sort, poison last, a table of ring centres: K10) or "stream" (the
+    in-order scan, K8). The plain versions take the same routes."""
+    ns = support.shape[1]
+    if topk_scan.RING_MIN_NS <= ns < topk_scan._IDX_RING:
+        return "ring" if support_mask is None else "ring_masked"
+    return "stream"
+
+
+def duplicate_shadow_mask(points: torch.Tensor,
+                          valid_mask: torch.Tensor | None = None):
+    """[B,N,C] -> [B,N] bool: True for a point that exactly duplicates a
+    lower-index point; the lowest-index copy of each group is not flagged.
+    Invalid rows are first moved to 1e8 + i (float32, as the reference
+    does). A stable lexicographic sort on the coordinates (x first), then
+    each point is compared with the first of its run of equal points."""
+    b, n, c = points.shape
+    pts = points
+    if valid_mask is not None:
+        poison = 1e8 + torch.arange(n, dtype=torch.float32,
+                                    device=points.device)[None, :, None]
+        pts = torch.where(valid_mask[..., None], pts, poison)
+    order = torch.arange(n, device=points.device).expand(b, n)
+    for d in reversed(range(c)):  # least significant key first
+        key = pts[..., d].gather(1, order)
+        order = order.gather(1, torch.sort(key, dim=1, stable=True).indices)
+    ps = pts.gather(1, order[..., None].expand(b, n, c))
+    new_run = torch.ones((b, n), dtype=torch.bool, device=points.device)
+    new_run[:, 1:] = (ps[:, 1:] != ps[:, :-1]).any(dim=-1)
+    pos = torch.arange(n, device=points.device).expand(b, n)
+    run_start = torch.cummax(torch.where(new_run, pos, 0), dim=1).values
+    shadow = order != order.gather(1, run_start)
+    return torch.zeros((b, n), dtype=torch.bool,
+                       device=points.device).scatter(1, order, shadow)
+
+
+def group_knn(k: int, query: torch.Tensor, support: torch.Tensor,
+              support_features: torch.Tensor | None = None,
+              support_mask: torch.Tensor | None = None, unique: bool = True,
+              impl: str = "auto"):
+    """kNN, then group the support's coordinates (or ``support_features``)
+    at the neighbours: (grouped [B,Nq,k,C], idx [B,Nq,k], dist [B,Nq,k]).
+
+    ``unique=True`` (the reference's default) masks exact duplicate support
+    points down to their lowest-index copy first, so the k neighbours are
+    distinct coordinates; it needs k distinct valid points per cloud.
+    """
+    if unique:
+        shadow = duplicate_shadow_mask(support, support_mask)
+        support_mask = (~shadow if support_mask is None
+                        else support_mask & ~shadow)
+    dist, idx = knn(query, support, k, support_mask=support_mask, impl=impl)
+    grouped = group_points(
+        support if support_features is None else support_features, idx,
+        impl)
+    return grouped, idx, dist
 
 
 def ball_query(xyz: torch.Tensor, centroids: torch.Tensor, radius: float,

@@ -192,7 +192,7 @@ def test_band_min_matches_pallas(form):
     if form == "centers":  # the masked form (K7's band_min_dynamic)
         cen = np.array([[2, 0], [1, 1]], np.int32)
         ref = jax_ns.band_min_dynamic(pp, qp, jnp.asarray(cen), tb=512)
-        out = nn_sorted.band_min(_t(pp), _t(qp), tb=512, centers=_t(cen))
+        out = nn_sorted.band_min_dynamic(_t(pp), _t(qp), _t(cen), tb=512)
     else:
         tbq, stride = (128, 4) if form == "tbq128_stride4" else (512, 1)
         ref = jax_ns.band_min(pp, qp, tb=512, tbq=tbq, stride=stride)
@@ -334,14 +334,15 @@ def test_chamfer_distance_matches_jax(monkeypatch, reduction,
 
 
 def test_masked_chamfer_matches_jax_sorted_masked(sorted_at_256):
-    # At sizes where the reference takes its masked sorted path (K7), the
-    # port takes K5 on the poisoned clouds: same values and grads.
+    # At sizes where the reference takes its masked sorted path (K7), so
+    # does the port: same values and grads.
     rng = np.random.default_rng(15)
     p, q = nn_inputs("random", 700, 600)
     pm = rng.uniform(size=p.shape[:2]) < 0.8
     qm = rng.uniform(size=q.shape[:2]) < 0.8
     assert jax_chamfer.chamfer_path(p, q, pm, qm) == "sorted_masked"
-    assert chamfer.chamfer_path(_t(p), _t(q), _t(pm), _t(qm)) == "dense"
+    assert chamfer.chamfer_path(_t(p), _t(q), _t(pm), _t(qm)) == (
+        "sorted_masked")
     rv, rg = jax.value_and_grad(
         lambda p, q: jax_chamfer.chamfer_distance(p, q, pm, qm), (0, 1)
     )(jnp.asarray(p), jnp.asarray(q))

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from pytorch_points_tpu_torch.core.masking import poison_points
 from pytorch_points_tpu_torch.kernels import (
     auction,
     ballquery,
@@ -183,10 +184,88 @@ def test_nn_band_cuda_matches_plain(dev):
     rng = np.random.default_rng(9)
     (cen,) = _on(dev, rng.integers(0, 3, (2, 4)).astype(np.int32))
     with torch.inference_mode():
-        for kw in (dict(tbq=128, stride=4), dict(tbq=512), dict(centers=cen)):
+        for kw in (dict(tbq=128, stride=4), dict(tbq=512)):
             got = nn_sorted.band_min(ps, qs, impl="cuda", **kw)
             ref = nn_sorted.band_min(ps, qs, impl="torch", **kw)
             _assert_same([got], [ref])
+        got = nn_sorted.band_min_dynamic(ps, qs, cen, impl="cuda")
+        _assert_same([got], [nn_sorted.band_min_dynamic(ps, qs, cen,
+                                                        impl="torch")])
+
+
+def test_nn_band_dynamic_cuda_matches_plain_at_ragged_masks(dev):
+    # K7: ragged valid counts push the centre windows to the clamped edge
+    rng = np.random.default_rng(17)
+    p, q = _on(dev, cloud(rng, 4, 5000), cloud(rng, 4, 4000))
+    pm, qm = _on(dev, np.arange(5000)[None] < np.array([[5000], [3701],
+                                                        [2500], [600]]),
+                 np.arange(4000)[None] < np.array([[1200], [4000], [3999],
+                                                   [2048]]))
+    pp, qp = poison_points(p, pm, 1.0), poison_points(q, qm, -1.0)
+    ps = nn_sorted._pad_poison(nn_sorted.sort_by_morton_masked(pp, pm)[0],
+                               5120, 1.0)
+    qs = nn_sorted._pad_poison(nn_sorted.sort_by_morton_masked(qp, qm)[0],
+                               4096, -1.0)
+    cen = nn_sorted._band_centers(pm.sum(1), qm.sum(1), 10, 8, 512)
+    with torch.inference_mode():
+        got = nn_sorted.band_min_dynamic(ps, qs, cen, impl="cuda")
+        ref = nn_sorted.band_min_dynamic(ps, qs, cen, impl="torch")
+        _assert_same([got], [ref])
+        got = nn_sorted.nndistance_indexed_masked(pp, qp, impl="cuda")
+        ref = nn_sorted.nndistance_indexed_masked(pp, qp, impl="torch")
+        dense = distance_tiles.nn_both_directions(pp, qp, impl="cuda")
+    _assert_same(got, ref)
+    for g, r, v in zip(got, dense, (pm, pm, qm, qm)):
+        assert torch.equal(g[v], r[v]) and (g[~v] == 0).all()
+
+
+def _ring_cases(kind, b, nq, ns):
+    rng = np.random.default_rng(18)
+    q, s = cloud(rng, b, nq, kind), cloud(rng, b, ns, kind)
+    if kind == "random":
+        s[:, 100:228] = s[:, :128]  # duplicate ties
+    return q, s
+
+
+@pytest.mark.parametrize("k", [5, 16, 33])
+@pytest.mark.parametrize("kind", ["random", "grid"])
+def test_knn_ring_cuda_matches_plain(dev, kind, k):
+    # ns=9000 pads the last chunk with the id-2^24 rows
+    q, s = _on(dev, *_ring_cases(kind, 2, 3000, 9000))
+    n_valid = torch.tensor([[9000], [5432]], device=dev)
+    sp = poison_points(s, torch.arange(9000, device=dev)[None] < n_valid,
+                       -1.0)
+    with torch.inference_mode():
+        for masked, sup in ((False, s), (True, sp)):
+            qsp, sup4, cen, _ = topk_scan._ring_inputs(q, sup, masked)
+            ref = topk_scan.knn_ring_torch(qsp, sup4, k, cen)
+            if masked:
+                got = topk_scan.knn_ring_masked_cuda(qsp, sup4, k, cen)
+            else:
+                got = topk_scan.knn_ring_cuda(qsp, sup4, k)
+            _assert_same(got[:2], ref[:2])
+        qsp, sup4, _, _ = topk_scan._ring_inputs(q, s, False)
+        for unroll in (1, 2, 3):
+            got = topk_scan.knn_ring_stats_cuda(qsp, sup4, k, unroll)
+            ref = topk_scan.knn_ring_torch(qsp, sup4, k, None, unroll, True)
+            _assert_same(got, ref)
+
+
+def test_knn_ring_cuda_matches_stream_at_scale(dev):
+    # the reference's at-scale cross-checks: K9 and K10 against K8 at N=16384
+    x = cloud(np.random.default_rng(19), 2, 16384)
+    x[:, 1000:1128] = x[:, :128]  # forced duplicate ties
+    (x,) = _on(dev, x)
+    n_valid = torch.tensor([[16384], [12211]], device=dev)
+    xp = poison_points(x, torch.arange(16384, device=dev)[None] < n_valid,
+                       -1.0)
+    with torch.inference_mode():
+        _assert_same(topk_scan.knn(x, x, 16, impl="cuda"),
+                     topk_scan.knn(x, x, 16, impl="cuda", sorted_ok=False))
+        got = topk_scan.knn(x, xp, 16, impl="cuda", masked=True)
+        _assert_same(got, topk_scan.knn(x, xp, 16, impl="cuda",
+                                        sorted_ok=False))
+    assert (got[1] < n_valid[:, :, None]).all()
 
 
 def test_autoencoder_backward_cuda_matches_plain(dev):

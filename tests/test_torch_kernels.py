@@ -8,8 +8,10 @@ need the card: tests/test_torch_cuda.py holds them against these plain
 versions there.
 """
 
+import inspect
 import subprocess
 import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -164,12 +166,20 @@ def test_dispatch_resolves_by_device():
 
 @pytest.mark.parametrize("op", ["fps", "ball_query", "gather", "knn",
                                 "scatter", "nn_dense", "nn_band",
-                                "nn_resident"])
+                                "nn_band_dynamic", "nn_resident", "knn_ring",
+                                "knn_ring_masked", "knn_ring_stats"])
 def test_cuda_impl_on_cpu_tensor_raises(op):
     x = torch.zeros(1, 8, 3)
     idx = torch.zeros(1, 4, dtype=torch.int32)
     cloud = torch.zeros(1, 512, 3)
     call = {
+        "nn_band_dynamic": lambda: nn_sorted.band_min_dynamic(
+            cloud, cloud, idx.new_zeros(1, 1), impl="cuda"),
+        "knn_ring": lambda: topk_scan.knn_ring(x, cloud, 3, impl="cuda"),
+        "knn_ring_masked": lambda: topk_scan.knn_ring_masked(x, cloud, 3,
+                                                             impl="cuda"),
+        "knn_ring_stats": lambda: topk_scan.knn_ring_stats(x, cloud, 3,
+                                                           impl="cuda"),
         "fps": lambda: fps.furthest_point_sample(x, 2, impl="cuda"),
         "ball_query": lambda: ballquery.ball_query(x, x, 0.1, 4, impl="cuda"),
         "gather": lambda: gather.gather_rows(x, idx, impl="cuda"),
@@ -189,18 +199,51 @@ def test_cuda_impl_on_cpu_tensor_raises(op):
 
 
 def test_port_imports_without_jax():
+    # Every module of the port (walked, so new modules are covered without
+    # being listed) and chip_smoke.py's imports, with JAX and the JAX
+    # package made unimportable.
     code = (
-        "import sys; sys.modules['jax'] = None; sys.modules['flax'] = None\n"
+        "import sys, pkgutil, importlib, importlib.util\n"
+        "sys.modules['jax'] = None; sys.modules['flax'] = None\n"
         "sys.modules['pytorch_points_tpu'] = None\n"
-        "import pytorch_points_tpu_torch.models, pytorch_points_tpu_torch.ops\n"
-        "import pytorch_points_tpu_torch.compat\n"
-        "import pytorch_points_tpu_torch.parallel\n"
-        "from pytorch_points_tpu_torch.kernels import (\n"
-        "    _build, ballquery, dispatch, distance_tiles, fps, gather,\n"
-        "    nn_sorted, scatter, topk_scan)\n"
-        "print('ok')\n"
+        "import pytorch_points_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__,\n"
+        "                                               pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke',\n"
+        "                                              'chip_smoke.py')\n"
+        "smoke = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(smoke)\n"
+        "smoke.import_port()\n"
+        "print(len(names))\n"
     )
+    root = Path(__file__).resolve().parent.parent
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    assert int(out.stdout.strip()) >= 30  # every module, not a few
+
+
+def test_models_default_to_the_card():
+    from pytorch_points_tpu_torch.layers import (
+        PointNetFPModule,
+        PointNetSAModule,
+        SharedMLP,
+    )
+    from pytorch_points_tpu_torch.models import (
+        PointCloudAutoencoder,
+        PointNet2Encoder,
+    )
+
+    for cls in (SharedMLP, PointNetSAModule, PointNetFPModule,
+                PointNet2Encoder, PointCloudAutoencoder):
+        assert inspect.signature(cls).parameters["device"].default == "cuda"
+    meta = PointCloudAutoencoder(16, 8, device="meta")
+    assert {p.device.type for p in meta.parameters()} == {"meta"}
+    if torch.cuda.is_available():
+        model = PointCloudAutoencoder(16, 8)
+        assert {p.device.type for p in model.parameters()} == {"cuda"}
+    else:  # no card: the default raises rather than stay on the CPU
+        with pytest.raises((RuntimeError, AssertionError)):
+            PointCloudAutoencoder(16, 8)

@@ -52,7 +52,7 @@ def test_autoencoder_matches_jax(jax_model, masked):
     xyz, mask = autoencoder_inputs(masked, B, N)
     ref = _jax_pallas_forward(model, xyz, mask)
 
-    port = PointCloudAutoencoder(npoint1=128, npoint2=32).eval()
+    port = PointCloudAutoencoder(npoint1=128, npoint2=32, device="cpu").eval()
     load_jax_params(port, tree)
     with torch.inference_mode():
         out = port(torch.from_numpy(xyz),
@@ -65,7 +65,7 @@ def test_autoencoder_matches_jax(jax_model, masked):
 
 def test_load_jax_params_covers_every_parameter(jax_model):
     _, tree = jax_model
-    port = PointCloudAutoencoder(npoint1=128, npoint2=32)
+    port = PointCloudAutoencoder(npoint1=128, npoint2=32, device="cpu")
     load_jax_params(port, tree)
     kernel = tree["encoder"]["sa2"]["mlp"]["layers"][1]["kernel"]
     np.testing.assert_array_equal(
@@ -96,7 +96,7 @@ def test_load_jax_params_rejects_bad_tree(jax_model, fault):
         "missing": lambda d, k: d.pop(k),
         "extra": lambda d, k: d.__setitem__("extra", d[k]),
     }[fault]
-    port = PointCloudAutoencoder(npoint1=128, npoint2=32)
+    port = PointCloudAutoencoder(npoint1=128, npoint2=32, device="cpu")
     before = port.fp1.mlp.layers[0].weight.detach().clone()
     with pytest.raises(ValueError):
         load_jax_params(port, _edited(tree, path, edit))
@@ -105,9 +105,9 @@ def test_load_jax_params_rejects_bad_tree(jax_model, fault):
 
 
 def test_same_seed_same_weights():
-    a = PointCloudAutoencoder(npoint1=16, npoint2=8,
+    a = PointCloudAutoencoder(npoint1=16, npoint2=8, device="cpu",
                               generator=torch.Generator().manual_seed(3))
-    b = PointCloudAutoencoder(npoint1=16, npoint2=8,
+    b = PointCloudAutoencoder(npoint1=16, npoint2=8, device="cpu",
                               generator=torch.Generator().manual_seed(3))
     for pa, pb in zip(a.parameters(), b.parameters()):
         assert torch.equal(pa, pb)

@@ -286,7 +286,7 @@ def test_config5_without_emd_matches_jax_and_trains():
     ref = {k: np.asarray(v)
            for k, v in _flatten(nnx.to_pure_dict(rgrads))}
 
-    port = PointCloudAutoencoder(npoint1=128, npoint2=32)
+    port = PointCloudAutoencoder(npoint1=128, npoint2=32, device="cpu")
     load_jax_params(port, tree)
     loss_fn = reconstruction_loss(emd_weight=0)
     batch = {"points": _t(xyz)}
@@ -327,7 +327,7 @@ def test_config5_with_emd_matches_jax_and_trains():
     ref = {k: np.asarray(v)
            for k, v in _flatten(nnx.to_pure_dict(rgrads))}
 
-    port = PointCloudAutoencoder(npoint1=128, npoint2=32)
+    port = PointCloudAutoencoder(npoint1=128, npoint2=32, device="cpu")
     load_jax_params(port, tree)
     batch = {"points": _t(xyz)}
     with torch.no_grad():
