@@ -26,7 +26,12 @@ Phases, in order; any failure raises and exits non-zero:
    its masked form (K10) and its stats twin at config 6's shapes, and the
    band with window centres (K7) at the masked headline's, K9 and K10 also
    against the streaming kNN (K8) at B=4 N=16384 with forced ties and
-   ragged valid counts. Kernel and plain times from CUDA events (a plain
+   ragged valid counts; the ball query that emits centred coordinates at
+   the serve and headline shapes and on a 75%-valid mask with a zero-hit
+   row whose point 0 is masked; the worklist NN on the pruned NN's own
+   inputs (B=32 N=16384, q a shuffle of p) and on a tie grid with a random
+   candidate mask; the older-layout gather at its test shape. Kernel and
+   plain times from CUDA events (a plain
    version that takes over a second: one call on the host clock); beside
    them each case's bound (the least time the card could take: bytes over
    3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger) and,
@@ -62,13 +67,24 @@ Phases, in order; any failure raises and exits non-zero:
    ring path); no invalid point returned;
 10. masked headline: phase 5 on 75% prefix-valid clouds (p_mask = q_mask),
    the chamfer on the "sorted_masked" path (K7 band, candidate mask, K6
-   resident scan), with each direction's share of candidate tile pairs.
+   resident scan), with each direction's share of candidate tile pairs;
+11. fused SA front half: ``_bq_group_centered`` forward and backward at the
+   serve shape (B=16 N=2048 P=512) and the headline's (B=32 N=16384
+   P=2048, FPS centroids): idx and cnt equal to ``ball_query``'s, the
+   coordinates bitwise equal to ``group_points`` minus the centroids, the
+   grads within K4's summation-order bound of the plain versions, a
+   grid-form call (P=8192, ``tp`` given) equal to the resident form; median
+   of 5 calls beside the unfused ball query + group + subtract;
+12. pruned NN: ``nn_both_directions_pruned`` at B=32 N=M=16384 with the
+   reference's tiles, (a) q a per-cloud shuffle of p (the worklist kernel
+   answers) and (b) independent clouds (too many candidate pairs: the
+   dense kernel K5 answers), each equal to K5, median of 5 calls beside K5.
 
-Phases 3-10 are the main paths. Each sets every kernel's launch count to 0
+Phases 3-12 are the main paths. Each sets every kernel's launch count to 0
 just before it runs and reads them just after, and fails if a kernel of its
 path was never launched.
 
-11. profile: one call of each main path, traced with torch.profiler after
+13. profile: one call of each main path, traced with torch.profiler after
    its untraced timing: wall ms, device busy ms and idle share per call,
    and the largest device items. It checks nothing; its launches are not
    counted.
@@ -118,6 +134,10 @@ VALID_SHARE = 0.75  # config 6m's and the masked headline's prefix masks
 KNN_CALLS = 10
 RING_CHECK = dict(b=4, n=16384, k=16)  # the reference's at-scale checks
 RING_VALID = (16384, 12288, 12211, 9001)  # valid counts of its masked one
+FUSED_CALLS = 5
+GRID_FORM = dict(p=8192, tp=2048)  # a query count only the grid form takes
+PRUNED = dict(b=32, n=16384)  # nn_both_directions_pruned, default tiles
+PRUNED_CALLS = 5
 # The bound: NVIDIA's H100 SXM data sheet.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # float32 outside the tensor cores
@@ -128,14 +148,20 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
             "pytorch_points_tpu/kernels/fps.py:40"),
     "ball_query": ("pytorch_points_tpu_torch/csrc/ballquery.cu",
                    "pytorch_points_tpu/kernels/ballquery.py:143"),
+    "ball_query_coords": ("pytorch_points_tpu_torch/csrc/ballquery.cu",
+                          "pytorch_points_tpu/kernels/ballquery.py:143 and "
+                          ":41 with with_coords=True"),
     "gather": ("pytorch_points_tpu_torch/csrc/gather.cu",
-               "pytorch_points_tpu/kernels/gather.py:84"),
+               "pytorch_points_tpu/kernels/gather.py:84 and "
+               "pytorch_points_tpu/kernels/gather.py:32"),
     "knn": ("pytorch_points_tpu_torch/csrc/knn.cu",
             "pytorch_points_tpu/kernels/topk_scan.py:71"),
     "scatter": ("pytorch_points_tpu_torch/csrc/scatter.cu",
                 "pytorch_points_tpu/kernels/scatter.py:129"),
     "nn_dense": ("pytorch_points_tpu_torch/csrc/nn_dense.cu",
                  "pytorch_points_tpu/kernels/distance_tiles.py:78"),
+    "nn_worklist": ("pytorch_points_tpu_torch/csrc/nn_worklist.cu",
+                    "pytorch_points_tpu/kernels/distance_tiles.py:197"),
     "nn_band": ("pytorch_points_tpu_torch/csrc/nn_sorted.cu",
                 "pytorch_points_tpu/kernels/nn_sorted.py:151"),
     "nn_band_dynamic": ("pytorch_points_tpu_torch/csrc/nn_sorted.cu",
@@ -160,6 +186,7 @@ HEAD_KERNELS = ("fps", "ball_query", "gather", "scatter", "nn_band",
                 "nn_resident")
 HEAD_MASKED_KERNELS = ("fps", "ball_query", "gather", "scatter",
                        "nn_band_dynamic", "nn_resident")
+FUSED_KERNELS = ("ball_query_coords", "scatter")
 
 
 def fail(msg: str) -> None:
@@ -315,6 +342,13 @@ def kernel_cases(torch, rng, dev):
         idx, _ = ballquery.ball_query(xyz, cen, RADIUS1, NSAMPLE,
                                       impl="torch")
         flat = idx.reshape(b, -1)
+        if tag == "B16_N2048":
+            cases.append(Case(
+                "ball_query_coords", f"sa1 {tag} P={NPOINT1} r={RADIUS1}",
+                lambda impl, x=xyz, c=cen: (
+                    ballquery.ball_query_and_group_coords(
+                        x, c, RADIUS1, NSAMPLE, impl=impl)),
+                [xyz, cen], bq_ops(torch, xyz, cen, RADIUS1, NSAMPLE)))
         cases += [
             Case("fps", f"sa1 {tag} k={NPOINT1}",
                  lambda impl, x=xyz: fps.furthest_point_sample(
@@ -342,7 +376,26 @@ def kernel_cases(torch, rng, dev):
     f1 = t(rng.standard_normal((b, NPOINT1, 128)).astype(np.float32))
     flat2 = idx2.reshape(b, -1)
     smask = t(rng.uniform(size=(b, NPOINT1)) < 0.75)
+    # a zero-hit row (centroid 0 far away) in every cloud, whose point 0 is
+    # masked out: its coordinates come from the unpoisoned point 0
+    zmask, zcen = mask.clone(), cen.clone()
+    zmask[:, 0], zcen[:, 0] = False, 5.0
+    if (ballquery.ball_query(xyz, zcen, RADIUS1, NSAMPLE, zmask,
+                             impl="torch")[1][:, 0] != 0).any():
+        fail("the masked coords case has no zero-hit row")
+    frng = np.random.default_rng(SEED + 15)  # tests/test_kernels.py:381
+    f300 = t(frng.standard_normal((2, 300, 3)).astype(np.float32))
+    i300 = t(frng.integers(0, 300, (2, 500)).astype(np.int32))
     cases += [
+        Case("ball_query_coords", "sa1 B16_N2048 75%-valid mask, point 0 "
+             "masked, zero-hit rows",
+             lambda impl: ballquery.ball_query_and_group_coords(
+                 xyz, zcen, RADIUS1, NSAMPLE, zmask, impl=impl),
+             [xyz, zcen, zmask],
+             bq_ops(torch, xyz, zcen, RADIUS1, NSAMPLE, zmask)),
+        Case("gather", "older layout (gather.py:32) B2 N=300 K=500 C=3",
+             lambda impl: gather.gather_rows_t(f300, i300, impl=impl),
+             [f300, i300], library=gather_call(torch, f300, i300)),
         Case("fps", "sa1 B16_N2048 75%-valid mask",
              lambda impl: fps.furthest_point_sample(xyz, NPOINT1, mask,
                                                     impl=impl),
@@ -472,6 +525,11 @@ def training_kernel_cases(torch, rng, dev):
              lambda impl: ballquery.ball_query(hp, hc, RADIUS1, NSAMPLE,
                                                impl=impl),
              [hp, hc], bq_ops(torch, hp, hc, RADIUS1, NSAMPLE)),
+        Case("ball_query_coords",
+             f"headline B{hb} N={hn} P={HEAD['p']} r={RADIUS1}",
+             lambda impl: ballquery.ball_query_and_group_coords(
+                 hp, hc, RADIUS1, NSAMPLE, impl=impl),
+             [hp, hc], bq_ops(torch, hp, hc, RADIUS1, NSAMPLE)),
         Case("gather", f"headline group B{hb} K={hk} C=3",
              lambda impl: gather.gather_rows(hp, hidx, impl=impl),
              [hp, hidx], library=gather_call(torch, hp, hidx)),
@@ -569,6 +627,54 @@ def ring_kernel_cases(torch, dev):
                 lambda impl, a=a, o=o, c=c: ns.band_min_dynamic(a, o, c,
                                                                 impl=impl),
                 [a, o, c], band_ops))
+    return cases
+
+
+def shuffled(rng, x):
+    """Each cloud of x [B,N,3] in its own random order."""
+    return np.stack([c[rng.permutation(len(c))] for c in x])
+
+
+def worklist_kernel_cases(torch, dev):
+    """The worklist kernel on the inputs the pruned NN gives it at B=32
+    N=M=16384 (q a shuffle of p, the reference's tiles), and directly on a
+    dyadic tie grid with a seeded random candidate mask (every tile row
+    and column paired) and k_max at the count. On the grid, equal
+    distances resolve to the lowest sorted position."""
+    from pytorch_points_tpu_torch.kernels import distance_tiles as dt
+
+    rng = np.random.default_rng(SEED + 13)
+    b, n = PRUNED["b"], PRUNED["n"]
+    p = cloud(rng, b, n)
+    p, q = (torch.from_numpy(a).to(dev) for a in (p, shuffled(rng, p)))
+    plan = dt.pruned_plan(p, q)
+    codes1, codes2, count = dt._worklist_codes(plan["cand"], plan["k_max"])
+    args = (plan["pp"], plan["qp"], codes1, codes2, count, plan["tn"],
+            plan["tm"])
+    pairs = count.clamp(max=plan["k_max"]).sum().item()
+    # the work: one distance tile per pair run, as the reference computes it
+    cases = [Case(
+        "nn_worklist", f"pruned NN B{b} N=M={n} q = shuffled p, {pairs} "
+        "pairs",
+        lambda impl: (dt.run_worklist_cuda if impl == "cuda" else
+                      dt.run_worklist_torch)(*args),
+        list(args[:5]), DIST_FLOPS * plan["tn"] * plan["tm"] * pairs)]
+    gb, gn, tn, tm = 8, 4096, 256, 128
+    ni, nj = gn // tn, gn // tm
+    pp, qp = (torch.from_numpy(grid64(rng, gb, gn)).to(dev) for _ in range(2))
+    cand = rng.uniform(size=(gb, ni, nj)) < 0.3
+    for bi in range(gb):
+        cand[bi, np.arange(ni), rng.integers(0, nj, ni)] = True
+        cand[bi, rng.integers(0, ni, nj), np.arange(nj)] = True
+    cand = torch.from_numpy(cand).to(dev)
+    k_max = int(cand.reshape(gb, -1).sum(1).max().item())
+    pairs = cand.sum().item()
+    cases.append(Case(
+        "nn_worklist", f"_run_worklist, tie grid B{gb} N=M={gn} random "
+        f"candidates k_max={k_max}",
+        lambda impl: dt._run_worklist(cand, pp, qp, gb, ni, nj, tn, tm, gn,
+                                      k_max, impl)[0],
+        [pp, qp, cand], DIST_FLOPS * tn * tm * pairs))
     return cases
 
 
@@ -764,6 +870,7 @@ def phase_kernels(torch, dev):
         cases = kernel_cases(torch, rng, dev)
         cases += training_kernel_cases(torch, rng, dev)
         cases += ring_kernel_cases(torch, dev)
+        cases += worklist_kernel_cases(torch, dev)
         for case in cases:
             hold_against_plain(torch, case, stats)
         check_emd_kernels(torch, dev, stats)
@@ -1119,6 +1226,178 @@ def phase_knn(torch, dev, wrappers, masked=False):
     return counts, {f"{cfg} knn B={b} N={n} k={k}": call}
 
 
+def median_ms(torch, fn, calls):
+    """Median host ms of ``calls`` synchronised calls."""
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_fused(torch, dev, wrappers):
+    """The fused SA front half (``_bq_group_centered``, the reference's
+    ``ops/grouping.py:302-330``) forward and backward at the serve and the
+    headline shapes, held against ``ball_query`` + ``group_points`` and the
+    plain versions, timed beside the unfused form. The reference's own
+    comment (``grouping.py:370-375``) says the fused form lost on its TPU;
+    both are timed here and nothing is claimed."""
+    from pytorch_points_tpu_torch.kernels import ballquery, fps
+    from pytorch_points_tpu_torch.ops import ball_query, group_points
+    from pytorch_points_tpu_torch.ops.grouping import _bq_group_centered
+
+    print("== phase 11: fused SA front half, _bq_group_centered forward and "
+          f"backward (r={RADIUS1}, ns={NSAMPLE})")
+    rng = np.random.default_rng(SEED + 14)
+    counts, calls = [], {}
+    for tag, b, n, p in (("serve", SLICE["b"], SLICE["n"], NPOINT1),
+                         ("headline", HEAD["b"], HEAD["n"], HEAD["p"])):
+        label = f"{tag} B={b} N={n} P={p}"
+        xyz = torch.from_numpy(cloud(rng, b, n)).to(dev)
+        with torch.inference_mode():
+            cen = fps.furthest_point_sample(xyz, p, impl="cuda")[1]
+        w = torch.from_numpy(rng.standard_normal(
+            (b, p, NSAMPLE, 3)).astype(np.float32)).to(dev)
+
+        def fused(impl, xyz=xyz, cen=cen, w=w):
+            x, c = xyz.clone().requires_grad_(), cen.clone().requires_grad_()
+            idx, cnt, g = _bq_group_centered(x, c, RADIUS1, NSAMPLE,
+                                             impl=impl)
+            (g * w).sum().backward()
+            return idx, cnt, g.detach(), x.grad, c.grad
+
+        def unfused(xyz=xyz, cen=cen, w=w):
+            x, c = xyz.clone().requires_grad_(), cen.clone().requires_grad_()
+            idx, _ = ball_query(x, c, RADIUS1, NSAMPLE)
+            g = group_points(x, idx) - c[:, :, None, :]
+            (g * w).sum().backward()
+
+        got, ref = fused("cuda"), fused("torch")  # uncounted
+        idx, cnt, g, gx, gc = got
+        with torch.inference_mode():
+            bq = ball_query(xyz, cen, RADIUS1, NSAMPLE, impl="cuda")
+            grouped = group_points(xyz, idx, "cuda") - cen[:, :, None, :]
+        if not (torch.equal(idx, bq[0]) and torch.equal(cnt, bq[1])):
+            fail(f"fused {label}: idx/cnt differ from ball_query's")
+        if not torch.equal(g, grouped):
+            fail(f"fused {label}: coordinates differ from group_points - "
+                 "centroids")
+        for name, a, r in zip(("idx", "cnt", "g", "centroid grad"),
+                              (idx, cnt, g, gc), (*ref[:3], ref[4])):
+            if a.dtype != r.dtype or not torch.equal(a, r):
+                fail(f"fused {label}: {name} differs from the plain version")
+        bound = scatter_bound(torch, idx.reshape(b, -1),
+                              w.reshape(b, -1, 3), n)
+        gap = (gx - ref[3]).abs()
+        if not (gap <= bound).all():
+            fail(f"fused {label}: xyz grad outside K4's summation-order "
+                 f"bound of the plain version (max {gap.max().item()})")
+        print(f"fused {label}: idx, cnt equal to ball_query; g bitwise equal "
+              f"to group_points - centroids; g, centroid grad bitwise and "
+              f"xyz grad within K4's bound of plain (max abs err "
+              f"{gap.max().item()!r}); zero-hit rows "
+              f"{(cnt == 0).sum().item()}")
+        if tag == "headline":
+            cen8 = xyz[:, :GRID_FORM["p"]].contiguous()
+            with torch.inference_mode():
+                resident = ballquery.ball_query_and_group_coords(
+                    xyz, cen8, RADIUS1, NSAMPLE)
+                grid = ballquery.ball_query_and_group_coords(
+                    xyz, cen8, RADIUS1, NSAMPLE, tp=GRID_FORM["tp"])
+            if not all(torch.equal(a, r) for a, r in zip(grid, resident)):
+                fail("fused: the grid form differs from the resident form")
+            print(f"grid form (P={GRID_FORM['p']}, tp={GRID_FORM['tp']}) "
+                  "equal to the resident form")
+        fused("cuda")  # warm-up, uncounted
+        times = []
+
+        def run(fused=fused, times=times):
+            for _ in range(FUSED_CALLS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fused("auto")
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+
+        counts.append(drive(wrappers, FUSED_KERNELS, f"fused SA front half "
+                            f"{label}", run))
+        unfused()  # warm-up
+        print(f"fused SA front half {label}: median "
+              f"{statistics.median(times)!r} ms per call (forward and "
+              f"backward) over {len(times)}: {times}; unfused ball_query + "
+              f"group_points - centroids: median "
+              f"{median_ms(torch, unfused, FUSED_CALLS)!r} ms")
+        calls[f"fused SA front half {label}"] = (
+            lambda fused=fused: fused("auto"))
+    return counts, calls
+
+
+def phase_pruned(torch, dev, wrappers):
+    """nn_both_directions_pruned at B=32 N=M=16384 with the reference's
+    tiles: (a) q a per-cloud shuffle of p, where the worklist answers; (b)
+    independent clouds, where too many tile pairs are candidates and the
+    dense kernel K5 answers. Each equal to K5 on the same (tie-free)
+    clouds, timed beside it."""
+    from pytorch_points_tpu_torch.kernels import distance_tiles as dt
+
+    b, n = PRUNED["b"], PRUNED["n"]
+    print(f"== phase 12: pruned NN, nn_both_directions_pruned at B={b} "
+          f"N=M={n}, default tiles")
+    rng = np.random.default_rng(SEED + 16)
+    p = cloud(rng, b, n)
+    counts, calls = [], {}
+    for label, q, want in (("(a) q = shuffled p", shuffled(rng, p),
+                            "nn_worklist"),
+                           ("(b) independent clouds", cloud(rng, b, n),
+                            "nn_dense")):
+        pt, qt = (torch.from_numpy(a).to(dev) for a in (p, q))
+        plan = dt.pruned_plan(pt, qt)
+        cnt, k_max = plan["count"], plan["k_max"]
+        share = (cnt.float() / (plan["ni"] * plan["nj"])).mean().item()
+        print(f"pruned NN {label}: candidate pairs per cloud "
+              f"{cnt.min().item()}-{cnt.max().item()} of "
+              f"{plan['ni'] * plan['nj']} (share {share!r}), k_max {k_max}")
+        outs, times = [], []
+        with torch.inference_mode():
+            dense = dt.nn_both_directions(pt, qt, impl="cuda")
+            dt.nn_both_directions_pruned(pt, qt)  # warm-up, uncounted
+
+            def run(pt=pt, qt=qt, outs=outs, times=times):
+                for _ in range(PRUNED_CALLS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    outs.append(dt.nn_both_directions_pruned(pt, qt))
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+
+            launched = drive(wrappers, (want,), f"pruned NN {label}", run)
+            other = "nn_dense" if want == "nn_worklist" else "nn_worklist"
+            if launched[other]:
+                fail(f"pruned NN {label}: the {other} branch ran too")
+            for out in outs:
+                for g, r in zip(out, dense, strict=True):
+                    if g.dtype != r.dtype or not torch.equal(g, r):
+                        fail(f"pruned NN {label}: differs from K5")
+            dense_ms = median_ms(
+                torch, lambda pt=pt, qt=qt: dt.nn_both_directions(pt, qt),
+                PRUNED_CALLS)
+        counts.append(launched)
+        print(f"pruned NN {label}: equal to K5 (distances bitwise, indices "
+              f"equal); median {statistics.median(times)!r} ms per call "
+              f"over {len(times)}: {times}; dense K5 both directions median "
+              f"{dense_ms!r} ms")
+
+        def call(pt=pt, qt=qt):
+            with torch.inference_mode():
+                return dt.nn_both_directions_pruned(pt, qt)[0].sum().item()
+
+        calls[f"pruned NN {label} B={b} N={n}"] = call
+    return counts, calls
+
+
 def check_assignment(torch, label, p, q, dist, assign):
     """Every assignment a permutation, dist its matched squared distances
     (bitwise, in the op's own arithmetic), all finite."""
@@ -1288,9 +1567,11 @@ def import_port():
     )
 
     wrappers = {"fps": fps.fps_cuda, "ball_query": ballquery.ball_query_cuda,
+                "ball_query_coords": ballquery.ball_query_coords_cuda,
                 "gather": gather.gather_rows_cuda, "knn": topk_scan.knn_cuda,
                 "scatter": scatter.scatter_add_cuda,
                 "nn_dense": distance_tiles.nn_one_direction_cuda,
+                "nn_worklist": distance_tiles.run_worklist_cuda,
                 "nn_band": nn_sorted.band_min_cuda,
                 "nn_band_dynamic": nn_sorted.band_min_dynamic_cuda,
                 "nn_resident": nn_sorted.nn_resident_cuda,
@@ -1336,11 +1617,12 @@ def main() -> int:
     for phase in (phase_serve, phase_train, phase_headline, phase_emd,
                   phase_metrics, phase_knn,
                   functools.partial(phase_knn, masked=True),
-                  functools.partial(phase_headline, masked=True)):
+                  functools.partial(phase_headline, masked=True),
+                  phase_fused, phase_pruned):
         counts, fns = phase(torch, dev, wrappers)
         paths += counts
         calls.update(fns)
-    print("== phase 11: profile one call of each main path")
+    print("== phase 13: profile one call of each main path")
     for label, fn in calls.items():
         profile_path(torch, label, fn)
 

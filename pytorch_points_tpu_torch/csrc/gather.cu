@@ -1,7 +1,8 @@
 // Row gather: out[b, k, :] = features[b, idx[b, k], :], exact in float32.
 //
-// Replaces the TPU kernel pytorch_points_tpu/kernels/gather.py::
-// _gather_kernel_t (gather_rows_t), which builds each row from one-hot MXU
+// Replaces the TPU kernels pytorch_points_tpu/kernels/gather.py::
+// _gather_kernel_t (gather_rows_t) and ::_gather_kernel (gather_rows, the
+// older layout of the same function), which build each row from one-hot MXU
 // products because the TPU has no fast per-row dynamic load. On Hopper a
 // plain indexed load is exact and cheap, so the port uses it for every
 // channel count, not only the reference's C <= 16.

@@ -8,7 +8,8 @@ at their first launch (``_build.library``).
 
 # Ops whose CUDA kernel has landed; dispatch.resolve refuses the others on
 # CUDA tensors rather than fall back to the plain version.
-AVAILABLE = frozenset({"fps", "ball_query", "gather", "knn", "scatter",
-                       "nn_dense", "nn_band", "nn_band_dynamic",
-                       "nn_resident", "knn_ring", "knn_ring_masked",
-                       "knn_ring_stats", "auction", "augment"})
+AVAILABLE = frozenset({"fps", "ball_query", "ball_query_coords", "gather",
+                       "knn", "scatter", "nn_dense", "nn_worklist",
+                       "nn_band", "nn_band_dynamic", "nn_resident",
+                       "knn_ring", "knn_ring_masked", "knn_ring_stats",
+                       "auction", "augment"})

@@ -1,9 +1,12 @@
-"""Ball query (kernel K2).
+"""Ball query (kernel K2), and the ball query that also emits the centred
+grouped coordinates.
 
 CUDA kernel: ``csrc/ballquery.cu``, which replaces both TPU forms,
 ``pytorch_points_tpu/kernels/ballquery.py::_bq_while_kernel`` and
-``::_bq_kernel`` (bitwise equal to each other). The header note there says
-what bounds it on the card.
+``::_bq_kernel`` (bitwise equal to each other), run with
+``with_coords=False`` (:func:`ball_query`) and ``with_coords=True``
+(:func:`ball_query_and_group_coords`, the template instance
+``WITH_COORDS``). The header note there says what bounds it on the card.
 """
 
 from __future__ import annotations
@@ -91,3 +94,80 @@ def ball_query(xyz: torch.Tensor, centroids: torch.Tensor, radius: float,
         return ball_query_cuda(xyz.contiguous(), centroids.contiguous(),
                                radius, nsample)
     return ball_query_torch(xyz, centroids, radius, nsample)
+
+
+def ball_query_coords_torch(xyz: torch.Tensor, centroids: torch.Tensor,
+                            radius: float, nsample: int, p0: torch.Tensor):
+    """Plain version of the coordinate-emitting query on an
+    already-poisoned support, given each cloud's unpoisoned point 0 ``p0``
+    [B,3]: (idx, cnt) as :func:`ball_query_torch`, and g [B,P,nsample,3] =
+    xyz[idx] - centroid, one rounding. Slots past cnt repeat the first
+    hit's; a zero-hit row gets p0 - centroid."""
+    idx, cnt = ball_query_torch(xyz, centroids, radius, nsample)
+    b, p, ns = idx.shape
+    hit = xyz.gather(1, idx.long().reshape(b, p * ns, 1).expand(-1, -1, 3))
+    g = torch.where((cnt == 0)[..., None, None], p0[:, None, None, :],
+                    hit.reshape(b, p, ns, 3)) - centroids[:, :, None, :]
+    return idx, cnt, g
+
+
+def ball_query_coords_cuda(xyz: torch.Tensor, centroids: torch.Tensor,
+                           radius: float, nsample: int, p0: torch.Tensor):
+    """Launch the CUDA kernel's ``WITH_COORDS`` instance: same contract as
+    :func:`ball_query_coords_torch`."""
+    b, n, _ = xyz.shape
+    p = centroids.shape[1]
+    _build.require(xyz, "ball_query_coords xyz", torch.float32, (b, n, 3))
+    _build.require(centroids, "ball_query_coords centroids", torch.float32,
+                   (b, p, 3))
+    _build.require(p0, "ball_query_coords p0", torch.float32, (b, 3))
+    if n < 1 or nsample < 1:
+        raise ValueError(f"ball_query_coords needs N >= 1 and nsample >= 1, "
+                         f"got N={n} nsample={nsample}")
+    idx = torch.empty((b, p, nsample), dtype=torch.int32, device=xyz.device)
+    cnt = torch.empty((b, p), dtype=torch.int32, device=xyz.device)
+    g = torch.empty((b, p, nsample, 3), dtype=torch.float32,
+                    device=xyz.device)
+    err = _build.library().ppt_ball_query_coords(
+        xyz.data_ptr(), centroids.data_ptr(), p0.data_ptr(), b, n, p,
+        nsample, squared_radius(radius), idx.data_ptr(), cnt.data_ptr(),
+        g.data_ptr(), _build.stream(xyz),
+    )
+    _build.check(err, "ppt_ball_query_coords")
+    ball_query_coords_cuda.launches += 1
+    return idx, cnt, g
+
+
+ball_query_coords_cuda.launches = 0
+
+
+def ball_query_and_group_coords(xyz: torch.Tensor, centroids: torch.Tensor,
+                                radius: float, nsample: int,
+                                mask: torch.Tensor | None = None,
+                                tp: int | None = None, tm: int | None = None,
+                                impl: str = "auto"):
+    """Fused SA front half: ball query and the CENTRED grouped coordinates.
+
+    [B,N,3] support, [B,P,3] centres -> (idx [B,P,nsample] int32, cnt [B,P]
+    int32, g [B,P,nsample,3] f32 = xyz[idx] - centroid, rounded once), the
+    coordinates emitted by the scan with no separate gather. Slots at or
+    beyond cnt repeat the first hit's coordinates; a zero-hit row gets
+    xyz[b, 0] - centroid from the UNPOISONED cloud, even where point 0 is
+    masked out, as the reference fills it. ``mask`` ([B,N] bool) marks
+    valid support points (poisoned, sign -1, before the scan).
+
+    ``tp`` and ``tm`` choose the reference's grid or resident form and its
+    tiles; the forms are bitwise equal, and the one CUDA kernel gives those
+    bits for any of them, so they are accepted and change nothing. The
+    outputs are detached: use ``group_points`` on ``idx``, or
+    ``ops.grouping._bq_group_centered``, for gradients.
+    """
+    del tp, tm  # every form and tiling gives the same bits
+    raw = xyz.detach().to(torch.float32)
+    centroids = centroids.detach().to(torch.float32).contiguous()
+    sup = poison_points(raw, mask, sign=-1.0)
+    p0 = raw[:, 0, :].contiguous()
+    if dispatch.resolve(impl, sup, "ball_query_coords") == "cuda":
+        return ball_query_coords_cuda(sup.contiguous(), centroids, radius,
+                                      nsample, p0)
+    return ball_query_coords_torch(sup, centroids, radius, nsample, p0)

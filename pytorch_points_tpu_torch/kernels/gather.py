@@ -1,8 +1,11 @@
 """Row gather (kernel K3).
 
-CUDA kernel: ``csrc/gather.cu``, which replaces the TPU kernel
-``pytorch_points_tpu/kernels/gather.py::_gather_kernel_t`` (``gather_rows_t``).
-The header note there says what bounds it on the card.
+CUDA kernel: ``csrc/gather.cu``, which replaces both TPU kernels,
+``pytorch_points_tpu/kernels/gather.py::_gather_kernel_t`` (``gather_rows_t``)
+and ``::_gather_kernel`` (``gather_rows``, the older layout). The two
+compute the same function, out[b,k,:] = f[b,idx[b,k],:] as [B,K,C], and
+differ only in their layout inside the TPU kernel, so one CUDA kernel serves
+both names. The header note there says what bounds it on the card.
 """
 
 from __future__ import annotations
@@ -47,3 +50,7 @@ def gather_rows(features: torch.Tensor, idx: torch.Tensor,
         return gather_rows_cuda(features.contiguous(),
                                 idx.to(torch.int32).contiguous())
     return gather_rows_torch(features, idx)
+
+
+# The reference's lane-major twin computes the same [B,K,C] result.
+gather_rows_t = gather_rows

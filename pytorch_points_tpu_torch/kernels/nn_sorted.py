@@ -29,6 +29,10 @@ from pytorch_points_tpu_torch.core.masking import BIG_COORD
 from pytorch_points_tpu_torch.kernels import _build, dispatch
 from pytorch_points_tpu_torch.kernels.distance_tiles import (
     _PLAIN_PAIRS,
+    _interleave,
+    _morton_codes,
+    _pad_poison,
+    _round_up,
     sqdist_rows,
 )
 from pytorch_points_tpu_torch.kernels.scatter import scatter_add
@@ -38,29 +42,6 @@ from pytorch_points_tpu_torch.kernels.scatter import scatter_add
 # (tb), band window tiles (tbq) over q subsampled by ``STRIDE``.
 TN, TM, FT, TB, TBQ, STRIDE = 512, 64, 64, 512, 128, 4
 SENTINEL = 2**30  # index of a row that saw no candidate (reference value)
-
-
-def _interleave(q: torch.Tensor) -> torch.Tensor:
-    """[B,N,3] int64 cells of 10 bits -> [B,N] Morton codes."""
-
-    def spread(v):  # spread 10 bits to every 3rd bit
-        v = (v | (v << 16)) & 0x030000FF
-        v = (v | (v << 8)) & 0x0300F00F
-        v = (v | (v << 4)) & 0x030C30C3
-        return (v | (v << 2)) & 0x09249249
-
-    return spread(q[..., 0]) | (spread(q[..., 1]) << 1) | (
-        spread(q[..., 2]) << 2)
-
-
-def _morton_codes(xyz: torch.Tensor, bits: int = 10) -> torch.Tensor:
-    """[B,N,3] -> [B,N] int64 Morton codes over each cloud's AABB, in the
-    reference's operation order (its uint32 codes, held in int64)."""
-    lo = xyz.amin(dim=1, keepdim=True)
-    hi = xyz.amax(dim=1, keepdim=True)
-    t = (xyz - lo) / torch.clamp_min(hi - lo, 1e-12)
-    return _interleave((t * (2**bits - 1)).to(torch.int64).clamp_(
-        0, 2**bits - 1))
 
 
 _INVALID_CODE = 0xFFFFFFFF  # the reference's max uint32 key: invalid last
@@ -101,22 +82,6 @@ def sort_by_morton_masked(x: torch.Tensor, valid: torch.Tensor):
     x = x.to(torch.float32)
     xs, perm = _sort_by_codes(x, _morton_codes_masked(x, valid))
     return xs, perm.to(torch.int32), valid.gather(1, perm)
-
-
-def _round_up(v: int, m: int) -> int:
-    return -(-v // m) * m
-
-
-def _pad_poison(x: torch.Tensor, target_n: int, sign: float) -> torch.Tensor:
-    """Pad [B,N,3] to [B,target_n,3] with the reference's far-away,
-    mutually distant rows, sign * (4 BIG_COORD + 8 i) along x."""
-    b, n, c = x.shape
-    if n == target_n:
-        return x
-    pad = x.new_zeros((b, target_n - n, c))
-    pad[..., 0] = sign * (BIG_COORD * 4.0 + 8.0 * torch.arange(
-        target_n - n, dtype=x.dtype, device=x.device))
-    return torch.cat([x, pad], dim=1)
 
 
 def _pad_ids(ids: torch.Tensor, target_n: int) -> torch.Tensor:

@@ -9,6 +9,9 @@ Reference semantics:
     the first hit; rows with zero hits are all zero.
   * group_points: gather features at a [B, P, S] index tensor; backward
     is a scatter-add (kernel K4).
+  * _bq_group_centered: the fused SA front half, a ball query that emits
+    the centred grouped coordinates in its scan; backward as the
+    reference's ``custom_vjp``.
 
 Indices carry no gradient: the searches run on detached clouds. kNN
 distances are differentiable in both clouds with the neighbour set held
@@ -161,6 +164,44 @@ def group_points(features: torch.Tensor, idx: torch.Tensor,
     b, p, s = idx.shape
     g = gather_points(features, idx.reshape(b, p * s), impl)
     return g.reshape(b, p, s, features.shape[-1])
+
+
+class _BqGroupCentered(torch.autograd.Function):
+    """Forward: the ball query that emits centred coordinates
+    (``ballquery.ball_query_and_group_coords``) on the detached clouds.
+    Backward, the reference's ``_bqg_bwd``: the grouped coordinates'
+    cotangent scattered (K4) into xyz at every slot's index, fill slots
+    included, and minus its sum over the slots into the centroids."""
+
+    @staticmethod
+    def forward(ctx, xyz, centroids, radius, nsample, impl):
+        idx, cnt, g = ballquery.ball_query_and_group_coords(
+            xyz, centroids, radius, nsample, impl=impl)
+        ctx.save_for_backward(idx)
+        ctx.n, ctx.impl = xyz.shape[1], impl
+        ctx.mark_non_differentiable(idx, cnt)
+        return idx, cnt, g
+
+    @staticmethod
+    def backward(ctx, _, __, gg):
+        (idx,) = ctx.saved_tensors
+        b = idx.shape[0]
+        grad_xyz = grad_cen = None
+        if ctx.needs_input_grad[0]:
+            grad_xyz = scatter_add_auto(idx.reshape(b, -1),
+                                        gg.reshape(b, -1, 3), ctx.n,
+                                        ctx.impl)
+        if ctx.needs_input_grad[1]:
+            grad_cen = -gg.sum(dim=2)
+        return grad_xyz, grad_cen, None, None, None
+
+
+def _bq_group_centered(xyz: torch.Tensor, centroids: torch.Tensor,
+                       radius: float, nsample: int, impl: str = "auto"):
+    """Fused SA front half with gradients: (idx [B,P,ns] int32, cnt [B,P]
+    int32, g [B,P,ns,3] = xyz[idx] - centroid), differentiable in g with
+    respect to both clouds (the neighbourhoods held constant)."""
+    return _BqGroupCentered.apply(xyz, centroids, radius, nsample, impl)
 
 
 def sample_and_group(xyz: torch.Tensor, features: torch.Tensor | None,

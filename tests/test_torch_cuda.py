@@ -95,6 +95,90 @@ def test_ball_query_cuda_matches_plain(dev, masked):
     _assert_same(got, ref)
 
 
+@pytest.mark.parametrize("nsample", [8, 5])
+@pytest.mark.parametrize("masked", [False, True])
+def test_ball_query_coords_cuda_matches_plain(dev, masked, nsample):
+    xyz, cen, mask = bq_inputs(masked)
+    if masked:
+        mask[:, 0] = False  # zero-hit rows fill from the unpoisoned point 0
+    xyz, cen, mask = _on(dev, xyz, cen, mask)
+    with torch.inference_mode():
+        got = ballquery.ball_query_and_group_coords(xyz, cen, 0.2, nsample,
+                                                    mask, impl="cuda")
+        ref = ballquery.ball_query_and_group_coords(xyz, cen, 0.2, nsample,
+                                                    mask, impl="torch")
+        idx, cnt = ballquery.ball_query(xyz, cen, 0.2, nsample, mask,
+                                        impl="cuda")
+    _assert_same(got, ref)
+    _assert_same(got[:2], (idx, cnt))
+    assert (got[1] == 0).any()
+
+
+def test_bq_group_centered_backward_cuda_matches_plain(dev):
+    from pytorch_points_tpu_torch.ops.grouping import _bq_group_centered
+
+    xyz, cen, _ = bq_inputs(False)
+    w = np.random.default_rng(22).standard_normal(
+        (2, 40, 8, 3)).astype(np.float32)
+    xyz, cen, w = _on(dev, xyz, cen, w)
+    res = {}
+    for impl in ("cuda", "torch"):
+        x, c = xyz.clone().requires_grad_(), cen.clone().requires_grad_()
+        _, _, g = _bq_group_centered(x, c, 0.2, 8, impl=impl)
+        (g * w).sum().backward()
+        res[impl] = (g.detach(), x.grad, c.grad)
+    _assert_same([res["cuda"][0], res["cuda"][2]],
+                 [res["torch"][0], res["torch"][2]])
+    # K4 sums in ascending k, the plain version with atomics on the card
+    scale = res["torch"][1].abs().max()
+    assert ((res["cuda"][1] - res["torch"][1]).abs() <= 1e-5 * scale).all()
+
+
+def test_nn_worklist_cuda_matches_plain(dev):
+    # dyadic grid clouds (ties), a seeded random candidate mask with every
+    # tile row and column paired, k_max at the count, then cut below it
+    rng = np.random.default_rng(31)
+    p, q = _on(dev, emd_cloud(rng, 4, 4096, "grid"),
+               emd_cloud(rng, 4, 3000, "grid"))
+    pp = distance_tiles._pad_poison(p, 4096, 1.0)
+    qp = distance_tiles._pad_poison(q, 3072, -1.0)
+    cand = rng.uniform(size=(4, 16, 24)) < 0.3
+    cand[:, np.arange(16), rng.integers(0, 24, 16)] = True
+    cand[:, rng.integers(0, 16, 24), np.arange(24)] = True
+    (cand,) = _on(dev, cand)
+    k_max = int(cand.reshape(4, -1).sum(1).max())
+    with torch.inference_mode():
+        for k in (k_max, k_max - 20):
+            got = distance_tiles._run_worklist(cand, pp, qp, 4, 16, 24, 256,
+                                               128, 4096, k, impl="cuda")
+            ref = distance_tiles._run_worklist(cand, pp, qp, 4, 16, 24, 256,
+                                               128, 4096, k, impl="torch")
+            _assert_same((*got[0], got[1]), (*ref[0], ref[1]))
+
+
+@pytest.mark.parametrize("kind", ["shuffle", "independent"])
+def test_nn_pruned_cuda_matches_plain_and_dense(dev, kind):
+    # q a per-cloud shuffle of p: the worklist answers; independent clouds:
+    # too many candidate pairs, the dense kernel (K5) answers
+    rng = np.random.default_rng(36)
+    p = cloud(rng, 2, 16384)
+    q = (np.stack([c[rng.permutation(16384)] for c in p])
+         if kind == "shuffle" else cloud(rng, 2, 16384))
+    p, q = _on(dev, p, q)
+    plan = distance_tiles.pruned_plan(p, q)
+    assert bool((plan["count"] > plan["k_max"]).any()) == (
+        kind == "independent")
+    with torch.inference_mode():
+        before = distance_tiles.run_worklist_cuda.launches
+        got = distance_tiles.nn_both_directions_pruned(p, q, impl="cuda")
+        ran = distance_tiles.run_worklist_cuda.launches - before
+        ref = distance_tiles.nn_both_directions_pruned(p, q, impl="torch")
+        dense = distance_tiles.nn_both_directions(p, q, impl="cuda")
+    assert ran == (kind == "shuffle")
+    _assert_same(got, ref)
+    _assert_same(got, dense)  # tie-free clouds
+
+
 @pytest.mark.parametrize("c", [3, 128])
 def test_gather_cuda_matches_plain(dev, c):
     rng = np.random.default_rng(3)
@@ -103,7 +187,8 @@ def test_gather_cuda_matches_plain(dev, c):
     with torch.inference_mode():
         got = gather.gather_rows(f, idx, impl="cuda")
         ref = gather.gather_rows(f, idx, impl="torch")
-    _assert_same([got], [ref])
+        older = gather.gather_rows_t(f, idx, impl="cuda")
+    _assert_same([got, older], [ref, ref])
 
 
 @pytest.mark.parametrize("k", [3, 16, 64])

@@ -164,10 +164,11 @@ def test_dispatch_resolves_by_device():
         dispatch.resolve("pallas", x, "fps")
 
 
-@pytest.mark.parametrize("op", ["fps", "ball_query", "gather", "knn",
-                                "scatter", "nn_dense", "nn_band",
-                                "nn_band_dynamic", "nn_resident", "knn_ring",
-                                "knn_ring_masked", "knn_ring_stats"])
+@pytest.mark.parametrize("op", ["fps", "ball_query", "ball_query_coords",
+                                "gather", "knn", "scatter", "nn_dense",
+                                "nn_worklist", "nn_band", "nn_band_dynamic",
+                                "nn_resident", "knn_ring", "knn_ring_masked",
+                                "knn_ring_stats"])
 def test_cuda_impl_on_cpu_tensor_raises(op):
     x = torch.zeros(1, 8, 3)
     idx = torch.zeros(1, 4, dtype=torch.int32)
@@ -182,6 +183,10 @@ def test_cuda_impl_on_cpu_tensor_raises(op):
                                                            impl="cuda"),
         "fps": lambda: fps.furthest_point_sample(x, 2, impl="cuda"),
         "ball_query": lambda: ballquery.ball_query(x, x, 0.1, 4, impl="cuda"),
+        "ball_query_coords": lambda: ballquery.ball_query_and_group_coords(
+            x, x, 0.1, 4, impl="cuda"),
+        "nn_worklist": lambda: distance_tiles.nn_both_directions_pruned(
+            x, x, impl="cuda"),
         "gather": lambda: gather.gather_rows(x, idx, impl="cuda"),
         "knn": lambda: topk_scan.knn(x, x, 3, impl="cuda"),
         "scatter": lambda: scatter.scatter_add(idx, x[:, :4], 8,
