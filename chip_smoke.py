@@ -16,10 +16,13 @@ Phases, in order; any failure raises and exits non-zero:
    included), with 75%-valid masked and tie-grid
    cases: FPS, ball query, gather, kNN, dense NN (K5) and the Morton-pruned
    band and resident NN (K6) with indices identical and values bitwise
-   equal, K6 also against K5 on the same clouds; the scatter (K4) within
-   the bound of two f32 summation orders of the plain version (which uses
-   atomics on the card), bitwise equal across two launches and bitwise
-   exact for a permutation write; the auction (K11) and its JV endgame
+   equal, K6 also against K5 on the same clouds; the scatter (K4) bitwise
+   equal to its plain version run on the CPU (which sums in ascending k, as
+   K4 does) and across two launches, and within the bound of two f32
+   summation orders of the plain version on the card (which uses atomics),
+   at the masked headline's two chamfer-backward scatters (real indices
+   from its masked NN, a 4096-update row in each) too; the auction (K11)
+   and its JV endgame
    (K12) with owners and prices bitwise equal, on config 4's normal clouds,
    gaussian-mixture, tie-grid, padded (N=2000) and masked clouds, both
    budget ladders, and a small endgame pop cap; the Morton-ring kNN (K9),
@@ -30,13 +33,21 @@ Phases, in order; any failure raises and exits non-zero:
    the serve and headline shapes and on a 75%-valid mask with a zero-hit
    row whose point 0 is masked; the worklist NN on the pruned NN's own
    inputs (B=32 N=16384, q a shuffle of p) and on a tie grid with a random
-   candidate mask; the older-layout gather at its test shape. Kernel and
+   candidate mask; the older-layout gather at its test shape; the repairs:
+   K8 at k = 65 and 128 (passes of 64), K9 and K10 at k = 100 (the wide
+   list), the any-C streaming scan at config 7's feature widths C = 24 and
+   96, and K11 with 9 phases (two chained launches). Kernel and
    plain times from CUDA events (a plain
    version that takes over a second: one call on the host clock); beside
    them each case's bound (the least time the card could take: bytes over
    3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger) and,
    for the gather and the scatter, the time of one PyTorch call computing
-   the same function (``torch.gather``, ``Tensor.index_add_``);
+   the same function (``torch.gather``, ``Tensor.index_add_``). The gather
+   and scatter cases, and their library calls, also give their device-only
+   time (torch.profiler, the device items of one call, summed; marked
+   where the trace lost its opening spin); each scatter case also its
+   device items per call, its longest run and the time of ``index_add_``
+   under ``torch.use_deterministic_algorithms(True)``;
 3. serve: a full-width PointCloudAutoencoder (random weights from a seeded
    torch.Generator) answers B=16 N=2048 requests, B=32 N=16384 requests and
    masked requests under inference_mode. Every output must be finite and
@@ -142,6 +153,13 @@ PRUNED_CALLS = 5
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # float32 outside the tensor cores
 DIST_FLOPS = 8  # one squared distance: 3 subtract, 3 multiply, 2 add
+KNN_WIDE_K = (65, 128)  # K8 past one pass of 64
+RING_WIDE_K = 100  # K9/K10 past the register lists
+CONFIG7_C = (24, 96)  # config 7's feature-space graphs (edge1, edge2)
+CONFIG7 = dict(b=8, n=2048, k=17)
+AUCTION_PHASES = 9  # past the 8 phases one K11 launch holds
+SPLIT_KERNELS = ("gather", "scatter")  # also timed device-only
+DEVICE_CALLS = 5  # calls traced for a device-only time
 
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "fps": ("pytorch_points_tpu_torch/csrc/fps.cu",
@@ -270,13 +288,16 @@ class Case:
     f32 operations the work needs on these inputs, a number or a function
     of the kernel's outputs (data-dependent work); ``library`` one PyTorch
     call computing the same function, or None; ``bound`` the scatter's
-    summation-order bound (None: bitwise equal)."""
+    summation-order bound against the plain version on the card (None:
+    bitwise equal); ``cpu`` the plain version on CPU copies of the inputs,
+    which the kernel's output must equal bitwise, or None."""
 
     def __init__(self, name, label, fn, inputs, ops=0, library=None,
-                 bound=None):
+                 bound=None, cpu=None):
         self.name, self.label, self.fn = name, label, fn
         self.inputs, self.ops, self.library, self.bound = (
             inputs, ops, library, bound)
+        self.cpu = cpu
 
 
 def nbytes(tensors):
@@ -309,6 +330,95 @@ def index_add_call(torch, idx, upd, n):
     return lambda: out.index_add_(0, flat, src)
 
 
+WHOLE_TRACE = " [WHOLE TRACE: opening spin lost, opening call counted]"
+
+
+def traced(torch, fn, calls, tries=3):
+    """({device item name: (own microseconds summed, count)}, calls traced,
+    marker) over ``calls`` calls of ``fn``, from a torch.profiler trace.
+    The trace opens on one more call and a short spin kernel, and only the
+    device items that start after the spin are counted: a trace can lose
+    its first device items. When a trace loses the spin too it is taken
+    again, and after ``tries`` such traces the last one is counted whole,
+    its opening call included, and the marker is :data:`WHOLE_TRACE` (else
+    empty), to be printed on every line that uses the trace. Nothing here
+    fails a run: the profile only informs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        marks = [e.time_range.start for e in device
+                 if "spin_kernel" in e.name]
+        if marks:
+            break
+    start, counted = (max(marks), calls) if marks else (None, calls + 1)
+    marker = "" if marks else WHOLE_TRACE
+    items = {}
+    # a record_function range (Adam's step) also shows on the device as a
+    # user annotation over kernels counted on their own
+    for e in device:
+        if ((start is None or e.time_range.start > start)
+                and not e.is_user_annotation and "spin_kernel" not in e.name):
+            us, n = items.get(e.name, (0.0, 0))
+            items[e.name] = (us + e.self_device_time_total, n + 1)
+    return items, counted, marker
+
+
+def device_ms(torch, fn, calls=DEVICE_CALLS):
+    """(device ms, device items, marker) per call: the own times of the
+    device items of the traced calls (:func:`traced`), summed, and their
+    count, each over the calls traced, and the trace's marker."""
+    items, counted, marker = traced(torch, fn, calls)
+    return (sum(us for us, _ in items.values()) / 1e3 / counted,
+            sum(n for _, n in items.values()) / counted, marker)
+
+
+def longest_run(torch, idx, n):
+    """The most updates any one output row of a scatter at idx [B,K]
+    into n rows receives."""
+    idx = idx.long()
+    rows = idx + n * torch.arange(idx.shape[0], device=idx.device)[:, None]
+    inside = (idx >= 0) & (idx < n)
+    return int(torch.bincount(rows[inside]).max()) if inside.any() else 0
+
+
+def deterministic_ms(torch, fn):
+    """(event-timed ms, device-only ms, trace marker) of ``fn`` under
+    ``torch.use_deterministic_algorithms(True)``, the setting restored."""
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        dev, _, marker = device_ms(torch, fn)
+        return cuda_ms(torch, fn), dev, marker
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
+def scatter_case(torch, label, i, u, m):
+    """K4 at idx ``i`` [B,K], updates ``u`` [B,K,C] into ``m`` rows: held
+    bitwise against the plain version on CPU copies, within the summation-
+    order bound of the plain version on the card, timed beside one
+    ``index_add_``."""
+    from pytorch_points_tpu_torch.kernels import scatter
+
+    return Case(
+        "scatter", label,
+        lambda impl: scatter.scatter_add(i, u, m, impl=impl),
+        [i, u], u.numel(), library=index_add_call(torch, i, u, m),
+        bound=scatter_bound(torch, i, u, m),
+        cpu=lambda: scatter.scatter_add(i.cpu(), u.cpu(), m))
+
+
 def bq_ops(torch, xyz, cen, radius, nsample, mask=None):
     """Distance flops a ball query needs: each centre scans its support in
     index order up to its nsample-th hit (or to the end)."""
@@ -328,7 +438,12 @@ def bq_ops(torch, xyz, cen, radius, nsample, mask=None):
 
 def kernel_cases(torch, rng, dev):
     """Cases at the serving path's shapes."""
-    from pytorch_points_tpu_torch.kernels import ballquery, fps, gather
+    from pytorch_points_tpu_torch.kernels import (
+        ballquery,
+        fps,
+        gather,
+        topk_scan,
+    )
     from pytorch_points_tpu_torch.ops import grouping
 
     def t(a):
@@ -420,6 +535,19 @@ def kernel_cases(torch, rng, dev):
                                        impl=impl),
              [xyz, cen, smask], DIST_FLOPS * b * n * NPOINT1),
     ]
+    for k in KNN_WIDE_K:  # passes of 64
+        cases.append(Case(
+            "knn", f"B16 Nq={n} Ns={NPOINT1} k={k}",
+            lambda impl, k=k: topk_scan.knn(xyz, cen, k, impl=impl),
+            [xyz, cen], DIST_FLOPS * b * n * NPOINT1))
+    cb, cn, ck = CONFIG7["b"], CONFIG7["n"], CONFIG7["k"]
+    crng = np.random.default_rng(SEED + 18)
+    for c in CONFIG7_C:  # the any-C scan; 3 C - 1 flops a distance
+        f = t(crng.standard_normal((cb, cn, c)).astype(np.float32))
+        cases.append(Case(
+            "knn", f"config 7 feature graph B{cb} N={cn} C={c} k={ck}",
+            lambda impl, f=f: topk_scan.knn(f, f, ck, impl=impl),
+            [f], (3 * c - 1) * cb * cn * cn))
     return cases
 
 
@@ -437,7 +565,7 @@ def scatter_bound(torch, idx, upd, n):
 def training_kernel_cases(torch, rng, dev):
     """Cases of the training paths' kernels: K5 at config 5's shape; K6,
     and K1, K2 and K3 at the headline's; K4 at the backward scatters of
-    both (within its summation-order bound)."""
+    both and of the masked headline's chamfer."""
     from pytorch_points_tpu_torch.core.masking import poison_points
     from pytorch_points_tpu_torch.kernels import (
         ballquery,
@@ -445,7 +573,6 @@ def training_kernel_cases(torch, rng, dev):
         fps,
         gather,
         nn_sorted,
-        scatter,
     )
 
     def t(a):
@@ -546,13 +673,33 @@ def training_kernel_cases(torch, rng, dev):
         f"headline FPS coords backward B{hb} K={HEAD['p']} n={hn} C=3":
             (hfps, u6, hn),
     }.items():
-        cases.append(Case(
-            "scatter", label,
-            lambda impl, i=i, u=u, m=m: scatter.scatter_add(i, u, m,
-                                                            impl=impl),
-            [i, u], u.numel(), library=index_add_call(torch, i, u, m),
-            bound=scatter_bound(torch, i, u, m)))
+        cases.append(scatter_case(torch, label, i, u, m))
+    # the masked headline's chamfer backward: its two scatters at the real
+    # indices of its masked NN (every poisoned point takes one neighbour)
+    pred, gt, pm, gm = masked_head_inputs(torch, dev)
+    _, i1, _, i2 = nn_sorted.nndistance_indexed_masked(
+        poison_points(pred, pm, 1.0), poison_points(gt, gm, -1.0),
+        impl="cuda")
+    mrng = np.random.default_rng(SEED + 17)
+    for label, i in (("p->q indices, into q", i1),
+                     ("q->p indices, into p", i2)):
+        u = t(mrng.standard_normal((hb, hn, 3)).astype(np.float32))
+        cases.append(scatter_case(
+            torch, f"masked headline chamfer backward, {label}, B{hb} "
+            f"K={hn} n={hn} C=3", i, u, hn))
     return cases
+
+
+def masked_head_inputs(torch, dev, valid=None):
+    """The masked headline's inputs: (pred, gt, pm, gm), the prefix masks
+    VALID_SHARE of each cloud or ``valid`` (two lists of counts)."""
+    b, n = HEAD["b"], HEAD["n"]
+    rng = np.random.default_rng(SEED + 10)
+    pred = torch.from_numpy(head_pred(rng)).to(dev)
+    gt = torch.from_numpy(cloud(rng, b, n)).to(dev)
+    pm = prefix_mask(torch, b, n, dev, valid and valid[0])
+    gm = prefix_mask(torch, b, n, dev, valid and valid[1])
+    return pred, gt, pm, gm
 
 
 def masked_head_clouds(torch, dev, valid=None):
@@ -563,11 +710,7 @@ def masked_head_clouds(torch, dev, valid=None):
     from pytorch_points_tpu_torch.kernels import nn_sorted as ns
 
     b, n = HEAD["b"], HEAD["n"]
-    rng = np.random.default_rng(SEED + 10)
-    pred = torch.from_numpy(head_pred(rng)).to(dev)
-    gt = torch.from_numpy(cloud(rng, b, n)).to(dev)
-    pm = prefix_mask(torch, b, n, dev, valid and valid[0])
-    gm = prefix_mask(torch, b, n, dev, valid and valid[1])
+    pred, gt, pm, gm = masked_head_inputs(torch, dev, valid)
     ps = ns.sort_by_morton_masked(poison_points(pred, pm, 1.0), pm)[0]
     gs = ns.sort_by_morton_masked(poison_points(gt, gm, -1.0), gm)[0]
     c1 = ns._band_centers(pm.sum(1), gm.sum(1), n // ns.TB, n // ns.TB, ns.TB)
@@ -611,6 +754,26 @@ def ring_kernel_cases(torch, dev):
                            if impl == "cuda" else
                            ts.knn_ring_torch(qsp, sup4, k, stats=True)),
              [qsp, sup4], lambda outs: visited(outs[2])),
+    ]
+    # k = 100, past the register lists: at the reference's check shape,
+    # with forced duplicate ties and ragged valid counts
+    rb, rn, rk = RING_CHECK["b"], RING_CHECK["n"], RING_WIDE_K
+    xr, xrp = ring_check_clouds(torch, dev)
+    wq, ws, _, _ = ts._ring_inputs(xr, xr, False)
+    mwq, mws, wcen, _ = ts._ring_inputs(xr, xrp, True)
+    cases += [
+        Case("knn_ring", f"B{rb} N={rn} k={rk} forced ties",
+             lambda impl: (ts.knn_ring_cuda(wq, ws, rk) if impl == "cuda"
+                           else ts.knn_ring_torch(wq, ws, rk))[:2],
+             [wq, ws],
+             lambda outs: visited(ts.knn_ring_stats_cuda(wq, ws, rk)[2])),
+        Case("knn_ring_masked", f"B{rb} N={rn} k={rk} valid {RING_VALID}",
+             lambda impl: (ts.knn_ring_masked_cuda(mwq, mws, rk, wcen)
+                           if impl == "cuda" else
+                           ts.knn_ring_torch(mwq, mws, rk, wcen))[:2],
+             [mwq, mws, wcen],
+             lambda outs: visited(ts._launch_ring(mwq, mws, rk, wcen,
+                                                  ts.UNROLL, True)[2])),
     ]
     hb, hn = HEAD["b"], HEAD["n"]
     band_ops = DIST_FLOPS * hb * hn * 3 * ns.TB
@@ -678,31 +841,42 @@ def worklist_kernel_cases(torch, dev):
     return cases
 
 
-def check_ring_equals_stream(torch, dev):
-    """The reference's at-scale checks, which never ran on a TPU-less
-    machine: K9 and K10 against the streaming kernel (K8) at B=4 N=16384
-    with forced duplicate ties, K10 at ragged valid counts; indices
-    identical, distances bitwise, no invalid point returned."""
+def ring_check_clouds(torch, dev):
+    """The reference's at-scale check clouds, B=4 N=16384 with 128 forced
+    duplicates: (x, x poisoned past the ragged valid counts RING_VALID)."""
     from pytorch_points_tpu_torch.core.masking import poison_points
-    from pytorch_points_tpu_torch.kernels import topk_scan as ts
 
-    b, n, k = RING_CHECK["b"], RING_CHECK["n"], RING_CHECK["k"]
+    b, n = RING_CHECK["b"], RING_CHECK["n"]
     x = cloud(np.random.default_rng(SEED + 12), b, n)
     x[:, 1000:1128] = x[:, :128]  # forced duplicate ties
     x = torch.from_numpy(x).to(dev)
     valid = prefix_mask(torch, b, n, dev, list(RING_VALID))
-    xp = poison_points(x, valid, -1.0)
+    return x, poison_points(x, valid, -1.0)
+
+
+def check_ring_equals_stream(torch, dev):
+    """The reference's at-scale checks, which never ran on a TPU-less
+    machine: K9 and K10 against the streaming kernel (K8) at B=4 N=16384
+    with forced duplicate ties, K10 at ragged valid counts, at config 6's
+    k and at k = 100 (the wide lists against K8's passes); indices
+    identical, distances bitwise, no invalid point returned."""
+    from pytorch_points_tpu_torch.kernels import topk_scan as ts
+
+    b, n = RING_CHECK["b"], RING_CHECK["n"]
+    x, xp = ring_check_clouds(torch, dev)
+    ks = (RING_CHECK["k"], RING_WIDE_K)
     with torch.inference_mode():
-        for label, sup, masked in (("K9", x, False), ("K10", xp, True)):
-            ring = ts.knn(x, sup, k, impl="cuda", masked=masked)
-            stream = ts.knn(x, sup, k, impl="cuda", sorted_ok=False)
-            for g, r in zip(ring, stream, strict=True):
-                if g.dtype != r.dtype or not torch.equal(g, r):
-                    fail(f"{label} differs from K8 at B={b} N={n}")
-        if not (ring[1] < torch.tensor(RING_VALID, device=dev)[:, None,
-                                                                None]).all():
-            fail("K10 returned a poisoned support point")
-    print(f"K9 == K8 and K10 == K8 at B={b} N={n} k={k} with 128 forced "
+        for k in ks:
+            for label, sup, masked in (("K9", x, False), ("K10", xp, True)):
+                ring = ts.knn(x, sup, k, impl="cuda", masked=masked)
+                stream = ts.knn(x, sup, k, impl="cuda", sorted_ok=False)
+                for g, r in zip(ring, stream, strict=True):
+                    if g.dtype != r.dtype or not torch.equal(g, r):
+                        fail(f"{label} differs from K8 at B={b} N={n} k={k}")
+            if not (ring[1] < torch.tensor(RING_VALID, device=dev)[
+                    :, None, None]).all():
+                fail(f"K10 returned a poisoned support point at k={k}")
+    print(f"K9 == K8 and K10 == K8 at B={b} N={n} k={ks} with 128 forced "
           f"duplicates, K10 at valid counts {RING_VALID} (bitwise)")
 
 
@@ -777,6 +951,11 @@ def hold_against_plain(torch, case, stats):
         if not torch.equal(got[0], fn("cuda")):
             fail(f"{name} [{label}]: two launches differ")
     verdict = "equal" if bound is None else "within bound, repeatable"
+    if case.cpu is not None:
+        if not torch.equal(got[0].cpu(), case.cpu()):
+            fail(f"{name} [{label}]: kernel differs from the plain version "
+                 "on the CPU")
+        verdict += ", equal to plain on the CPU"
     ms = cuda_ms(torch, lambda: fn("cuda"))
     if plain_ms < PLAIN_SINGLE_MS:
         plain_ms = cuda_ms(torch, lambda: fn("torch"))
@@ -786,6 +965,18 @@ def hold_against_plain(torch, case, stats):
     print(f"{name:15s} {label:52s} {verdict}  max_abs_err={err!r}  kernel "
           f"{ms!r} ms  plain {plain_ms!r} ms  bound {b_ms!r} ms ({b_by}, "
           f"{ops!r} flops)  library {lib_ms!r} ms")
+    if name in SPLIT_KERNELS:
+        dev_ms, items, mark = device_ms(torch, lambda: fn("cuda"))
+        lib_dev, _, lib_mark = device_ms(torch, case.library)
+        line = (f"{'':15s} device-only: kernel {dev_ms!r} ms in {items!r} "
+                f"device items a call{mark}; library {lib_dev!r} ms{lib_mark}")
+        if name == "scatter":
+            det_ms, det_dev, det_mark = deterministic_ms(torch, case.library)
+            line += (f"; deterministic index_add_ {det_ms!r} ms, device-only"
+                     f" {det_dev!r} ms{det_mark}; longest run "
+                     f"{longest_run(torch, case.inputs[0], got[0].shape[1])}"
+                     " updates")
+        print(line)
     s = stats[name]
     s["max_abs_err"] = max(s["max_abs_err"], err)
     if "ms" not in s:  # the JSON line reports each kernel's 1st case
@@ -858,12 +1049,28 @@ def check_emd_kernels(torch, dev, stats):
                 fail(f"augment [{label}]: owners are not a permutation")
     if hints != {False, True}:
         fail(f"the EMD cases took only hint {hints}: both ladders must run")
+    # K11 past the 8 phases one launch holds: two chained launches
+    p9, q9 = (x[:8] for x in config4_clouds(torch, dev))
+    eps9 = auction.phase_schedule(EMD_EPS, AUCTION_PHASES, 2.0)
+    ladders9 = ([4] * AUCTION_PHASES, [6] * AUCTION_PHASES)
+    hint9 = auction._hardness_hint(p9, q9)
+
+    def k11_phases(impl):
+        run = auction.auction_cuda if impl == "cuda" else (
+            auction.auction_torch)
+        return run(p9, q9, eps9, ladders9, hint9, 256, True)
+
+    hold_against_plain(torch, Case(
+        "auction", f"{AUCTION_PHASES} phases, config 4 clouds B8 "
+        f"N={p9.shape[1]}, hint {bool(hint9)}", k11_phases, [p9, q9],
+        DIST_FLOPS * p9.shape[0] * p9.shape[1] ** 2), stats)
 
 
 def phase_kernels(torch, dev):
     print("== phase 2: each kernel vs its plain PyTorch version "
-          "(indices identical, values bitwise; the scatter within its "
-          "summation-order bound)")
+          "(indices identical, values bitwise; the scatter bitwise against "
+          "the plain version on the CPU, within its summation-order bound "
+          "of the one on the card)")
     rng = np.random.default_rng(SEED)
     stats = {name: {"max_abs_err": 0.0} for name in KERNELS}
     with torch.inference_mode():
@@ -1088,10 +1295,7 @@ def phase_headline(torch, dev, wrappers, masked=False):
           f"backward, B={b}" + (f", {VALID_SHARE:.0%} prefix-valid "
                                 "p_mask = q_mask" if masked else ""))
     if masked:
-        _, _, _, _, pm, gm = masked_head_clouds(torch, dev)
-        rng = np.random.default_rng(SEED + 10)
-        pred = torch.from_numpy(head_pred(rng)).to(dev)
-        gt = torch.from_numpy(cloud(rng, b, n)).to(dev)
+        pred, gt, pm, gm = masked_head_inputs(torch, dev)
         want = "sorted_masked"
     else:
         rng = np.random.default_rng(SEED + 3)
@@ -1099,7 +1303,7 @@ def phase_headline(torch, dev, wrappers, masked=False):
         pred = torch.from_numpy(head_pred(rng)).to(dev)
         pm = gm = None
         want = "sorted_loss"
-    path = chamfer_path(pred, gt, pm, gm, reduction="mean")
+    path = chamfer_path(pred, gt, pm, gm, "auto", "mean")
     print(f"chamfer_path: {path}")
     if path != want:
         fail(f"{what}: chamfer took the {path} path, not {want}")
@@ -1514,13 +1718,10 @@ def phase_metrics(torch, dev, wrappers):
 
 
 def profile_path(torch, label, fn, calls=5):
-    """Untraced wall ms per call (after 3 warm-up calls), then a
-    torch.profiler trace of ``calls`` calls: device busy ms per call (the
-    sum of the kernels' and copies' own times), the device's idle share of
-    the untraced wall time, and the largest device items."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Untraced wall ms per call (after 3 warm-up calls), then ``calls``
+    calls traced (:func:`traced`): device busy ms per call (the sum of the
+    kernels' and copies' own times), the device's idle share of the
+    untraced wall time, and the largest device items."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -1529,24 +1730,16 @@ def profile_path(torch, label, fn, calls=5):
         fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / calls
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    # device items only; a record_function range (Adam's step) also shows
-    # on the device as a user annotation over kernels counted on their own
-    items = sorted((e for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA
-                    and not e.is_user_annotation),
-                   key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in items) / 1e3 / calls
+    items, counted, marker = traced(torch, fn, calls)
+    items = sorted(items.items(), key=lambda i: -i[1][0])
+    busy = sum(us for _, (us, _) in items) / 1e3 / counted
     print(f"profile {label}: wall {wall!r} ms/call untraced; device busy "
           f"{busy!r} ms/call; device idle share {1 - busy / wall!r}; "
-          f"{sum(e.count for e in items) / calls!r} device items/call")
-    for e in items[:PROFILE_TOP]:
-        print(f"  {e.self_device_time_total / 1e3 / calls:10.4f} ms/call "
-              f"{e.count / calls:7.1f}/call  {e.key[:90]}")
+          f"{sum(n for _, (_, n) in items) / counted!r} device items/call"
+          f"{marker}")
+    for name, (us, n) in items[:PROFILE_TOP]:
+        print(f"  {us / 1e3 / counted:10.4f} ms/call {n / counted:7.1f}/call"
+              f"  {name[:90]}")
 
 
 def import_port():

@@ -6,19 +6,35 @@ included). The hot ops run hand-written CUDA kernels (``csrc/``) on CUDA
 tensors and their plain PyTorch versions on CPU tensors; see
 ``kernels/dispatch.py``.
 
-This package imports ``torch`` and never ``jax``, ``flax`` or
-``pytorch_points_tpu``.
+The top level exports the reference's ported ops under its names
+(``pytorch_points_tpu/__init__.py``); ``batch_normals``,
+``normalize_point_batch``, ``normalize_to_box`` and
+``voxel_downsample_mask`` are not ported yet. This package imports
+``torch`` and never ``jax``, ``flax`` or ``pytorch_points_tpu``.
 """
 
 __version__ = "0.1.0"
 
 from pytorch_points_tpu_torch.ops import (  # noqa: E402
+    ball_query,
     chamfer_distance,
     chamfer_path,
     earth_mover_distance,
+    furthest_point_sample,
+    furthest_point_sample_and_gather,
+    gather_points,
+    group_knn,
+    group_points,
+    knn,
     nndistance,
+    sample_and_group,
     scatter_add,
+    three_interpolate,
+    three_nn,
 )
 
-__all__ = ["chamfer_distance", "chamfer_path", "earth_mover_distance",
-           "nndistance", "scatter_add"]
+__all__ = ["ball_query", "chamfer_distance", "chamfer_path",
+           "earth_mover_distance", "furthest_point_sample",
+           "furthest_point_sample_and_gather", "gather_points", "group_knn",
+           "group_points", "knn", "nndistance", "sample_and_group",
+           "scatter_add", "three_interpolate", "three_nn"]

@@ -24,6 +24,12 @@
 //    at each phase, prices carry over; phase ph runs at most
 //    budgets[hint][ph] sweeps at eps[ph].
 //
+// Any number of phases: a launch runs up to kMaxPhases of them from a
+// schedule passed by value, and a longer schedule chains launches, each
+// starting from the prices the one before wrote (price_in). Owners reset at
+// every phase anyway, so the chain computes what one launch of all the
+// phases would.
+//
 // On the card: one block per cloud, the cloud's state (coordinates,
 // prices, owners, assigned flags, the bid slots: 44 bytes an object) in
 // shared memory up to about 5000 points, in a global scratch buffer above.
@@ -111,12 +117,15 @@ __device__ __forceinline__ void top2_merge(float& v1, int& a1, float& v2,
   }
 }
 
+// price_in (null, or the prices of the previous launch of a chain: it may
+// be out_price itself) replaces the warm start or the zero start.
 __global__ void __launch_bounds__(kThreads)
     auction_kernel(const float* __restrict__ p, const float* __restrict__ q,
                    int n, int ti, Schedule sched,
                    const uint8_t* __restrict__ hint, int warm_start,
-                   int* __restrict__ out_owner, float* __restrict__ out_price,
-                   char* __restrict__ scratch, size_t scratch_stride) {
+                   const float* price_in, int* __restrict__ out_owner,
+                   float* out_price, char* __restrict__ scratch,
+                   size_t scratch_stride) {
   extern __shared__ __align__(16) char smem[];
   __shared__ int s_nbid;
   const int b = blockIdx.x;
@@ -139,7 +148,9 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   for (int j = tid; j < n; j += kThreads) {
     float pr = 0.f;
-    if (warm_start) {
+    if (price_in != nullptr) {
+      pr = price_in[static_cast<size_t>(b) * n + j];  // read before written
+    } else if (warm_start) {
       pr = kNeg;
       const float x = s.qx[j], y = s.qy[j], z = s.qz[j];
       for (int i = 0; i < n; ++i)
@@ -244,23 +255,17 @@ extern "C" int ppt_auction_state_bytes(int n, int ti) {
 // p, q: float [B, N, 3] (padded); eps: host float [phases]; budgets: host
 // int [2, phases]; hint: device bool scalar or null (default ladder).
 // out_owner: int [B, N]; out_price: float [B, N]. scratch: null (state in
-// shared memory) or b * scratch_stride bytes.
+// shared memory) or b * scratch_stride bytes. Any phases >= 1: one launch
+// per kMaxPhases of them, each after the first starting from the prices
+// the one before wrote.
 extern "C" int ppt_auction(const float* p, const float* q, int b, int n,
                            int ti, int phases, const float* eps,
                            const int* budgets, const uint8_t* hint,
                            int warm_start, int* out_owner, float* out_price,
                            char* scratch, int scratch_stride,
                            cudaStream_t stream) {
-  if (phases < 1 || phases > kMaxPhases || ti < 1 || ti > n)
-    return cudaErrorInvalidValue;
+  if (phases < 1 || ti < 1 || ti > n) return cudaErrorInvalidValue;
   if (b == 0 || n == 0) return cudaSuccess;
-  Schedule sched;
-  sched.phases = phases;
-  for (int ph = 0; ph < phases; ++ph) {
-    sched.eps[ph] = eps[ph];
-    sched.budgets[0][ph] = budgets[ph];
-    sched.budgets[1][ph] = budgets[phases + ph];
-  }
   const size_t smem = scratch ? 0 : state_bytes(n, ti);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -268,8 +273,19 @@ extern "C" int ppt_auction(const float* p, const float* q, int b, int n,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  auction_kernel<<<b, kThreads, smem, stream>>>(
-      p, q, n, ti, sched, hint, warm_start, out_owner, out_price, scratch,
-      static_cast<size_t>(scratch_stride));
-  return cudaGetLastError();
+  for (int ph0 = 0; ph0 < phases; ph0 += kMaxPhases) {
+    Schedule sched;
+    sched.phases = phases - ph0 < kMaxPhases ? phases - ph0 : kMaxPhases;
+    for (int ph = 0; ph < sched.phases; ++ph) {
+      sched.eps[ph] = eps[ph0 + ph];
+      sched.budgets[0][ph] = budgets[ph0 + ph];
+      sched.budgets[1][ph] = budgets[phases + ph0 + ph];
+    }
+    auction_kernel<<<b, kThreads, smem, stream>>>(
+        p, q, n, ti, sched, hint, warm_start, ph0 == 0 ? nullptr : out_price,
+        out_owner, out_price, scratch, static_cast<size_t>(scratch_stride));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }

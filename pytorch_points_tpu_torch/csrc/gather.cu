@@ -7,39 +7,132 @@
 // plain indexed load is exact and cheap, so the port uses it for every
 // channel count, not only the reference's C <= 16.
 //
-// On the card: one thread per output element, neighbouring threads on
-// neighbouring channels of a row. It is bound by device-memory bytes
-// (4 * (C + 1) read and 4 * C written per row); rows of a narrow C are
-// scattered loads whose sectors are mostly wasted.
+// On the card it is bound by device-memory bytes (4 (C + 1) read and 4 C
+// written per row). The design keeps the per-element work to the copy:
+//  * C <= 4: a warp takes 32 consecutive rows of one cloud, loads their 32
+//    indices in one coalesced load, and copies the 32 C values lane by lane
+//    (the row of value j is j / C, C a compile-time constant, its index
+//    shuffled from the lane that loaded it), so the stores are contiguous;
+//  * larger C: tpr threads a row (tpr a power of two up to 32), each row's
+//    index loaded once, 16-byte vectors where C % 4 == 0 and the rows are
+//    16-byte aligned (C = 128 at sa2 and fp);
+//  * a block covers a tile of rows of one cloud (one division per thread
+//    finds it), and index arithmetic is 32-bit unless B N C or B K C
+//    reaches 2^31.
+// Rows of a narrow C are scattered loads whose sectors are mostly wasted.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
+// C <= 4. Block `blockIdx.x` is tile t of cloud b (tiles = blocks a cloud),
+// kThreads rows a tile, 32 rows a warp.
+template <int C, typename Index>
 __global__ void __launch_bounds__(kThreads)
-    gather_rows_kernel(const float* __restrict__ f, const int* __restrict__ idx,
-                       int n, int k, int c, long long total,
-                       float* __restrict__ out) {
-  for (long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-       e < total; e += static_cast<long long>(gridDim.x) * kThreads) {
-    const long long r = e / c;  // row of the output, b * k + kk
-    const long long ch = e - r * c;
-    const long long b = r / k;
-    out[e] = f[(b * n + idx[r]) * c + ch];
+    gather_narrow_kernel(const float* __restrict__ f,
+                         const int* __restrict__ idx, int n, int k, int tiles,
+                         float* __restrict__ out) {
+  const int b = blockIdx.x / tiles;
+  const int tile = blockIdx.x - b * tiles;
+  const int lane = threadIdx.x & 31;
+  const int row0 = tile * kThreads + (threadIdx.x & ~31);  // the warp's first
+  if (row0 >= k) return;  // the whole warp
+  const int rows = min(32, k - row0);
+  const Index first = static_cast<Index>(b) * k + row0;
+  const int src = lane < rows ? idx[first + lane] : 0;
+  const float* fb = f + static_cast<Index>(b) * n * C;
+  float* dst = out + first * C;
+#pragma unroll
+  for (int j = lane; j < 32 * C; j += 32) {
+    const int r = j / C;
+    const int s = __shfl_sync(kFull, src, r);
+    if (r < rows) dst[j] = fb[static_cast<Index>(s) * C + (j - r * C)];
   }
+}
+
+// T: float or float4, cv = values of T in a row. Block `blockIdx.x` is tile
+// t of cloud b (tiles = blocks a cloud), kThreads >> log_tpr rows a tile.
+template <typename T, typename Index>
+__global__ void __launch_bounds__(kThreads)
+    gather_rows_kernel(const T* __restrict__ f, const int* __restrict__ idx,
+                       int n, int k, int cv, int log_tpr, int tiles,
+                       T* __restrict__ out) {
+  const int b = blockIdx.x / tiles;
+  const int tile = blockIdx.x - b * tiles;
+  const int kk = tile * (kThreads >> log_tpr) + (threadIdx.x >> log_tpr);
+  if (kk >= k) return;
+  const Index row = static_cast<Index>(b) * k + kk;
+  const T* src = f + (static_cast<Index>(b) * n + idx[row]) * cv;
+  T* dst = out + row * cv;
+  for (int v = threadIdx.x & ((1 << log_tpr) - 1); v < cv; v += 1 << log_tpr)
+    dst[v] = src[v];
+}
+
+bool fits_32_bit(int b, int n, int k, int c) {
+  return static_cast<long long>(b) * (n > k ? n : k) * c < (1LL << 31);
+}
+
+template <int C>
+cudaError_t launch_narrow(const float* f, const int* idx, int b, int n, int k,
+                          float* out, cudaStream_t stream) {
+  const int tiles = (k + kThreads - 1) / kThreads;
+  const long long blocks = static_cast<long long>(b) * tiles;
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
+  if (fits_32_bit(b, n, k, C)) {
+    gather_narrow_kernel<C, int><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                   stream>>>(f, idx, n, k, tiles, out);
+  } else {
+    gather_narrow_kernel<C, long long><<<static_cast<unsigned>(blocks),
+                                         kThreads, 0, stream>>>(
+        f, idx, n, k, tiles, out);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const T* f, const int* idx, int b, int n, int k, int cv,
+                   int c, T* out, cudaStream_t stream) {
+  int log_tpr = 0;
+  while ((1 << log_tpr) < cv && log_tpr < 5) ++log_tpr;
+  const int rows = kThreads >> log_tpr;
+  const int tiles = (k + rows - 1) / rows;
+  const long long blocks = static_cast<long long>(b) * tiles;
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
+  if (fits_32_bit(b, n, k, c)) {
+    gather_rows_kernel<T, int><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                 stream>>>(f, idx, n, k, cv, log_tpr, tiles,
+                                           out);
+  } else {
+    gather_rows_kernel<T, long long><<<static_cast<unsigned>(blocks),
+                                       kThreads, 0, stream>>>(
+        f, idx, n, k, cv, log_tpr, tiles, out);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// features: float [B, N, C]; idx: int [B, K], each in [0, N); out: float
+// [B, K, C].
 extern "C" int ppt_gather_rows(const float* features, const int* idx, int b,
                                int n, int k, int c, float* out,
                                cudaStream_t stream) {
-  const long long total = static_cast<long long>(b) * k * c;
-  if (total == 0) return cudaSuccess;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  const int grid = static_cast<int>(blocks < 65536 ? blocks : 65536);
-  gather_rows_kernel<<<grid, kThreads, 0, stream>>>(features, idx, n, k, c,
-                                                    total, out);
-  return cudaGetLastError();
+  if (b < 0 || n < 0 || k < 0 || c < 0) return cudaErrorInvalidValue;
+  if (b == 0 || k == 0 || c == 0) return cudaSuccess;
+  switch (c) {
+    case 1: return launch_narrow<1>(features, idx, b, n, k, out, stream);
+    case 2: return launch_narrow<2>(features, idx, b, n, k, out, stream);
+    case 3: return launch_narrow<3>(features, idx, b, n, k, out, stream);
+    case 4: return launch_narrow<4>(features, idx, b, n, k, out, stream);
+    default: break;
+  }
+  const bool vec = c % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(features) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec)
+    return launch(reinterpret_cast<const float4*>(features), idx, b, n, k,
+                  c / 4, c, reinterpret_cast<float4*>(out), stream);
+  return launch(features, idx, b, n, k, c, c, out, stream);
 }

@@ -58,6 +58,15 @@
 // inserted and then evicted inside one chunk (possible here, where
 // candidates arrive in chunk order) is not counted.
 //
+// Lists. Up to K = 64 a thread's list lives in registers (RegList: K a
+// template argument, every index static). Above 64 it lives in a global
+// scratch buffer, slot-major so that a warp's accesses to one slot are
+// coalesced (WideList: the worst entry cached in registers, an insert
+// shifts the larger entries down one slot from the end). Both hold the same
+// K = round_up(k, 8) entries and take the same inserts, so the skip test,
+// the counters and the result are the same for any k; the wide list is
+// slower, by the global round trips of each insert.
+//
 // On the card: bound by the distance arithmetic and the compare of each
 // visited (query, support) pair, about 8 flops for the distance; each
 // staged point is read by every thread as a shared-memory broadcast. A list
@@ -75,46 +84,160 @@ constexpr int kWarps = kTq / 32;
 constexpr int kPadId = 1 << 24;
 constexpr unsigned kFull = 0xffffffffu;
 
-// Insert (d, i) into the sorted list; the caller has checked that it is
-// below the last entry, which drops out. Each slot keeps the smaller of
-// its pair and the carried pair.
+// A thread's list in registers: K entries sorted by (d, id), each with a
+// "from this chunk" flag when STATS.
 template <int K, bool STATS>
-__device__ __forceinline__ void insert(float (&td)[K], int (&ti)[K],
-                                       bool (&tf)[K], float d, int i) {
-  bool f = true;
+struct RegList {
+  float td[K];
+  int ti[K];
+  bool tf[K];
+
+  __device__ __forceinline__ void init() {
 #pragma unroll
-  for (int s = 0; s < K; ++s) {
-    if (d < td[s] || (d == td[s] && i < ti[s])) {
-      const float tv = td[s];
-      const int tj = ti[s];
-      td[s] = d;
-      ti[s] = i;
-      d = tv;
-      i = tj;
-      if (STATS) {
-        const bool tg = tf[s];
-        tf[s] = f;
-        f = tg;
+    for (int s = 0; s < K; ++s) {
+      td[s] = INFINITY;
+      ti[s] = kPadId;
+      tf[s] = false;
+    }
+  }
+  __device__ __forceinline__ float worst() const { return td[K - 1]; }
+  __device__ __forceinline__ bool below_worst(float d, int i) const {
+    return d < INFINITY &&
+           (d < td[K - 1] || (d == td[K - 1] && i < ti[K - 1]));
+  }
+  // Insert (d, i), which is below the last entry; the last entry drops
+  // out. Each slot keeps the smaller of its pair and the carried pair.
+  __device__ __forceinline__ void insert(float d, int i) {
+    bool f = true;
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      if (d < td[s] || (d == td[s] && i < ti[s])) {
+        const float tv = td[s];
+        const int tj = ti[s];
+        td[s] = d;
+        ti[s] = i;
+        d = tv;
+        i = tj;
+        if (STATS) {
+          const bool tg = tf[s];
+          tf[s] = f;
+          f = tg;
+        }
       }
     }
   }
-}
+  __device__ __forceinline__ void clear_flags() {
+#pragma unroll
+    for (int s = 0; s < K; ++s) tf[s] = false;
+  }
+  __device__ __forceinline__ int flags() const {
+    int r = 0;
+#pragma unroll
+    for (int s = 0; s < K; ++s) r += tf[s] ? 1 : 0;
+    return r;
+  }
+  __device__ __forceinline__ void store(float* __restrict__ out_d,
+                                        int* __restrict__ out_i, size_t row,
+                                        int k) const {
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      if (s < k) {
+        out_d[row * k + s] = td[s];
+        out_i[row * k + s] = ti[s];
+      }
+    }
+  }
+};
 
-template <int K>
-__device__ __forceinline__ bool below_worst(const float (&td)[K],
-                                            const int (&ti)[K], float d,
-                                            int i) {
-  return d < INFINITY &&
-         (d < td[K - 1] || (d == td[K - 1] && i < ti[K - 1]));
-}
+// A thread's list in global scratch: slot s at d[s * kTq] (this thread's
+// column of its block's [K][kTq] slab), the worst entry cached.
+template <bool STATS>
+struct WideList {
+  float* d;
+  int* i;
+  unsigned char* f;
+  int K;
+  float wd;
+  int wi;
+
+  __device__ __forceinline__ void init() {
+    for (int s = 0; s < K; ++s) {
+      d[s * kTq] = INFINITY;
+      i[s * kTq] = kPadId;
+      if (STATS) f[s * kTq] = 0;
+    }
+    wd = INFINITY;
+    wi = kPadId;
+  }
+  __device__ __forceinline__ float worst() const { return wd; }
+  __device__ __forceinline__ bool below_worst(float dd, int ii) const {
+    return dd < INFINITY && (dd < wd || (dd == wd && ii < wi));
+  }
+  __device__ __forceinline__ void insert(float dd, int ii) {
+    int s = K - 1;
+    for (; s > 0; --s) {
+      const float pd = d[(s - 1) * kTq];
+      const int pi = i[(s - 1) * kTq];
+      if (pd < dd || (pd == dd && pi < ii)) break;
+      d[s * kTq] = pd;
+      i[s * kTq] = pi;
+      if (STATS) f[s * kTq] = f[(s - 1) * kTq];
+    }
+    d[s * kTq] = dd;
+    i[s * kTq] = ii;
+    if (STATS) f[s * kTq] = 1;
+    wd = d[(K - 1) * kTq];
+    wi = i[(K - 1) * kTq];
+  }
+  __device__ __forceinline__ void clear_flags() {
+    for (int s = 0; s < K; ++s) f[s * kTq] = 0;
+  }
+  __device__ __forceinline__ int flags() const {
+    int r = 0;
+    for (int s = 0; s < K; ++s) r += f[s * kTq];
+    return r;
+  }
+  __device__ __forceinline__ void store(float* __restrict__ out_d,
+                                        int* __restrict__ out_i, size_t row,
+                                        int k) const {
+    for (int s = 0; s < k; ++s) {
+      out_d[row * k + s] = d[s * kTq];
+      out_i[row * k + s] = i[s * kTq];
+    }
+  }
+};
+
+// K > 0: RegList<K>; K == 0: WideList of k_pad entries in the scratch
+// slabs list_d / list_i / list_f ([B, nI, k_pad, kTq] each), bound to this
+// thread's column of its block's slab.
+template <int K, bool STATS>
+struct ListOf {
+  using type = RegList<K, STATS>;
+  __device__ static void bind(type&, float*, int*, unsigned char*, size_t,
+                              int) {}
+};
+template <bool STATS>
+struct ListOf<0, STATS> {
+  using type = WideList<STATS>;
+  __device__ static void bind(type& list, float* ld, int* li,
+                              unsigned char* lf, size_t block, int k_pad) {
+    const size_t at = block * k_pad * kTq + threadIdx.x;
+    list.d = ld + at;
+    list.i = li + at;
+    list.f = STATS ? lf + at : nullptr;
+    list.K = k_pad;
+  }
+};
 
 template <int K, bool STATS>
 __global__ void __launch_bounds__(kTq)
     knn_ring_kernel(const float* __restrict__ qry,
                     const float4* __restrict__ sup,
                     const int* __restrict__ centers, int q_pad, int nj, int k,
-                    int unroll, float* __restrict__ out_d,
-                    int* __restrict__ out_i, int* __restrict__ stats) {
+                    int k_pad, int unroll, float* __restrict__ out_d,
+                    int* __restrict__ out_i, int* __restrict__ stats,
+                    float* __restrict__ list_d, int* __restrict__ list_i,
+                    unsigned char* __restrict__ list_f) {
   __shared__ float4 pts[kTm];
   __shared__ float box[kWarps][6];
   __shared__ int s_rmax;
@@ -133,15 +256,10 @@ __global__ void __launch_bounds__(kTq)
                 (static_cast<long long>(tile) * kTq + kTq / 2) * nj / q_pad);
   const float4* chunks = sup + static_cast<size_t>(b) * nj * kTm;
 
-  float td[K];
-  int ti[K];
-  bool tf[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    td[s] = INFINITY;
-    ti[s] = kPadId;
-    tf[s] = false;
-  }
+  typename ListOf<K, STATS>::type list;
+  ListOf<K, STATS>::bind(list, list_d, list_i, list_f,
+                         static_cast<size_t>(b) * ni + tile, k_pad);
+  list.init();
   int visits = 0;
   int trips = 0;
   if (STATS && threadIdx.x == 0) s_rmax = 0;
@@ -180,7 +298,7 @@ __global__ void __launch_bounds__(kTq)
       hy = fmaxf(hy, box[w][4]);
       hz = fmaxf(hz, box[w][5]);
     }
-    const float worst = td[K - 1];
+    const float worst = list.worst();
     const float gx = fmaxf(fmaxf(__fsub_rn(lx, qx), __fsub_rn(qx, hx)), 0.f);
     const float gy = fmaxf(fmaxf(__fsub_rn(ly, qy), __fsub_rn(qy, hy)), 0.f);
     const float gz = fmaxf(fmaxf(__fsub_rn(lz, qz), __fsub_rn(qz, hz)), 0.f);
@@ -188,10 +306,7 @@ __global__ void __launch_bounds__(kTq)
                                __fmul_rn(gz, gz));
     if (!__syncthreads_or(lb <= worst)) continue;  // uniform: skip the chunk
 
-    if (STATS) {
-#pragma unroll
-      for (int s = 0; s < K; ++s) tf[s] = false;
-    }
+    if (STATS) list.clear_flags();
     float dmin = INFINITY;
     float padmin = INFINITY;
     for (int t = 0; t < kTm; ++t) {
@@ -201,19 +316,15 @@ __global__ void __launch_bounds__(kTq)
       if (STATS) dmin = fminf(dmin, d);
       if (id == kPadId) {
         padmin = fminf(padmin, d);
-      } else if (below_worst<K>(td, ti, d, id)) {
-        insert<K, STATS>(td, ti, tf, d, id);
+      } else if (list.below_worst(d, id)) {
+        list.insert(d, id);
       }
     }
-    if (below_worst<K>(td, ti, padmin, kPadId))
-      insert<K, STATS>(td, ti, tf, padmin, kPadId);
+    if (list.below_worst(padmin, kPadId)) list.insert(padmin, kPadId);
 
     if (STATS) {
       const bool enter = __syncthreads_or(dmin <= worst);
-      int r = 0;
-#pragma unroll
-      for (int s = 0; s < K; ++s) r += tf[s] ? 1 : 0;
-      r = __reduce_max_sync(kFull, r);
+      const int r = __reduce_max_sync(kFull, list.flags());
       if (lane == 0) atomicMax(&s_rmax, r);
       __syncthreads();
       if (threadIdx.x == 0) {
@@ -224,13 +335,7 @@ __global__ void __launch_bounds__(kTq)
     }
   }
 
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    if (s < k) {
-      out_d[row * k + s] = td[s];
-      out_i[row * k + s] = ti[s];
-    }
-  }
+  list.store(out_d, out_i, row, k);
   if (STATS && threadIdx.x == 0) {
     const size_t at = (static_cast<size_t>(b) * ni + tile) * 2;
     stats[at] = visits;
@@ -240,15 +345,18 @@ __global__ void __launch_bounds__(kTq)
 
 template <int K>
 cudaError_t launch(const float* qry, const float4* sup, const int* centers,
-                   int b, int q_pad, int nj, int k, int unroll, float* out_d,
-                   int* out_i, int* stats, cudaStream_t stream) {
+                   int b, int q_pad, int nj, int k, int k_pad, int unroll,
+                   float* out_d, int* out_i, int* stats, float* list_d,
+                   int* list_i, unsigned char* list_f, cudaStream_t stream) {
   const dim3 grid(q_pad / kTq, b);
   if (stats != nullptr) {
     knn_ring_kernel<K, true><<<grid, kTq, 0, stream>>>(
-        qry, sup, centers, q_pad, nj, k, unroll, out_d, out_i, stats);
+        qry, sup, centers, q_pad, nj, k, k_pad, unroll, out_d, out_i, stats,
+        list_d, list_i, list_f);
   } else {
     knn_ring_kernel<K, false><<<grid, kTq, 0, stream>>>(
-        qry, sup, centers, q_pad, nj, k, unroll, out_d, out_i, stats);
+        qry, sup, centers, q_pad, nj, k, k_pad, unroll, out_d, out_i, stats,
+        list_d, list_i, list_f);
   }
   return cudaGetLastError();
 }
@@ -258,43 +366,37 @@ cudaError_t launch(const float* qry, const float4* sup, const int* centers,
 // qry: float [B, q_pad, 3], sorted and padded; sup: float [B, m_pad, 4]
 // (x, y, z, id); centers: int [B, q_pad / 512] or null; out_d, out_i:
 // [B, q_pad, k]; stats: int [B, q_pad / 512, 2] (visits, trips) or null.
-// q_pad and m_pad multiples of 512, 1 <= k <= k_pad = round_up(k, 8) <= 64.
+// q_pad and m_pad multiples of 512, 1 <= k <= k_pad = round_up(k, 8). For
+// k_pad > 64, list_d / list_i / list_f hold [B, q_pad, k_pad] floats, ints
+// and bytes of scratch (list_f only with stats); else they are null.
 extern "C" int ppt_knn_ring(const float* qry, const float* sup,
                             const int* centers, int b, int q_pad, int m_pad,
                             int k, int k_pad, int unroll, float* out_d,
-                            int* out_i, int* stats, cudaStream_t stream) {
+                            int* out_i, int* stats, float* list_d,
+                            int* list_i, unsigned char* list_f,
+                            cudaStream_t stream) {
   if (q_pad % kTq != 0 || m_pad % kTm != 0 || m_pad == 0 || k < 1 ||
-      k > k_pad || unroll < 1)
+      k > k_pad || k_pad % 8 != 0 || unroll < 1)
+    return cudaErrorInvalidValue;
+  if (k_pad > 64 && (list_d == nullptr || list_i == nullptr ||
+                     (stats != nullptr && list_f == nullptr)))
     return cudaErrorInvalidValue;
   if (b == 0 || q_pad == 0) return cudaSuccess;
   const float4* s = reinterpret_cast<const float4*>(sup);
   const int nj = m_pad / kTm;
+#define PPT_RING(KK)                                                      \
+  return launch<KK>(qry, s, centers, b, q_pad, nj, k, k_pad, unroll, out_d, \
+                    out_i, stats, list_d, list_i, list_f, stream)
   switch (k_pad) {
-    case 8:
-      return launch<8>(qry, s, centers, b, q_pad, nj, k, unroll, out_d, out_i,
-                       stats, stream);
-    case 16:
-      return launch<16>(qry, s, centers, b, q_pad, nj, k, unroll, out_d,
-                        out_i, stats, stream);
-    case 24:
-      return launch<24>(qry, s, centers, b, q_pad, nj, k, unroll, out_d,
-                        out_i, stats, stream);
-    case 32:
-      return launch<32>(qry, s, centers, b, q_pad, nj, k, unroll, out_d,
-                        out_i, stats, stream);
-    case 40:
-      return launch<40>(qry, s, centers, b, q_pad, nj, k, unroll, out_d,
-                        out_i, stats, stream);
-    case 48:
-      return launch<48>(qry, s, centers, b, q_pad, nj, k, unroll, out_d,
-                        out_i, stats, stream);
-    case 56:
-      return launch<56>(qry, s, centers, b, q_pad, nj, k, unroll, out_d,
-                        out_i, stats, stream);
-    case 64:
-      return launch<64>(qry, s, centers, b, q_pad, nj, k, unroll, out_d,
-                        out_i, stats, stream);
-    default:
-      return cudaErrorInvalidValue;
+    case 8: PPT_RING(8);
+    case 16: PPT_RING(16);
+    case 24: PPT_RING(24);
+    case 32: PPT_RING(32);
+    case 40: PPT_RING(40);
+    case 48: PPT_RING(48);
+    case 56: PPT_RING(56);
+    case 64: PPT_RING(64);
+    default: PPT_RING(0);  // k_pad > 64: the wide list
   }
+#undef PPT_RING
 }

@@ -3,11 +3,14 @@
 The kernels have a plain C interface: pointers and the stream travel as
 ``c_void_p``, sizes as ``c_int``, and every entry point returns
 ``cudaGetLastError()`` after its launch, which :func:`check` turns into an
-exception. nvcc compiles them at first use, one process per source, all
-started together, then links them, into ``build/pytorch_points_tpu_torch/``
-beside the package, keyed by a hash of the sources and flags, so a second
-process reuses the build. A failed build raises; nothing falls back to the
-plain versions.
+exception. A wrapper binds its entry point once, at import, with
+:func:`entry`, which resolves the ctypes function at its first call; the
+per-call path is then :func:`require`, ``torch.empty``, :func:`stream`
+and the ctypes call. nvcc compiles the sources at first use, one process
+per source, all started together, then links them, into
+``build/pytorch_points_tpu_torch/`` beside the package, keyed by a hash of
+the sources and flags, so a second process reuses the build. A failed
+build raises; nothing falls back to the plain versions.
 """
 
 from __future__ import annotations
@@ -39,13 +42,14 @@ _SIGNATURES = {
     "ppt_ball_query_coords": [_P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P],
     # features, idx, b, n, k, c, out, stream
     "ppt_gather_rows": [_P, _P, _I, _I, _I, _I, _P, _P],
-    # qry, sup, b, nq, ns, k, out_d, out_i, stream
-    "ppt_knn": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # qry, sup, b, nq, ns, c, k, out_d, out_i, stream
+    "ppt_knn": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     # qry, sup, centers, b, q_pad, m_pad, k, k_pad, unroll, out_d, out_i,
-    # stats, stream
-    "ppt_knn_ring": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    # updates, order, offsets, rows, c, out, stream
-    "ppt_scatter_rows": [_P, _P, _P, _I, _I, _P, _P],
+    # stats, list_d, list_i, list_f, stream
+    "ppt_knn_ring": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                     _P, _P],
+    # idx, updates, b, k, n, c, scratch, out, stream
+    "ppt_scatter_add": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     # p, q, b, n, m, out_d, out_i, stream
     "ppt_nn_dense": [_P, _P, _I, _I, _I, _P, _P, _P],
     # rows, cols, codes, count, b, n_rows, n_cols, t_row, t_col, k_max,
@@ -135,6 +139,21 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+class entry:
+    """A kernel entry point, bound at import and resolved in the library
+    at its first call (so importing a wrapper builds nothing)."""
+
+    __slots__ = ("name", "fn")
+
+    def __init__(self, name: str):
+        self.name, self.fn = name, None
+
+    def __call__(self, *args) -> int:
+        if self.fn is None:
+            self.fn = getattr(library(), self.name)
+        return self.fn(*args)
+
+
 def check(err: int, name: str) -> None:
     """Raise if a kernel entry point reported a CUDA error."""
     if err != 0:
@@ -146,29 +165,44 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
             shape: tuple) -> None:
     """Check a kernel argument: CUDA, dtype, shape (None = any), contiguous,
     and no gradient expected: the kernels are forward-only, and gradients
-    come from the ops' autograd Functions, which pass detached tensors."""
+    come from the ops' autograd Functions, which pass detached tensors.
+    One test for a good argument; the errors are told apart only after it
+    fails."""
+    if (t.is_cuda and t.dtype == dtype and t.is_contiguous()
+            and len(shape) == t.dim()
+            and all(s is None or s == d for s, d in zip(shape, t.shape))
+            and not (t.requires_grad and torch.is_grad_enabled())):
+        return
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if t.ndim != len(shape) or any(
+    if t.dim() != len(shape) or any(
         s is not None and s != d for s, d in zip(shape, t.shape)
     ):
         raise ValueError(f"{name}: expected shape {shape}, got "
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
-    if t.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError(
-            f"{name}: the CUDA kernels are forward-only; call the op in "
-            "pytorch_points_tpu_torch.ops (an autograd Function), or run "
-            "under torch.no_grad()/inference_mode()"
-        )
+    raise RuntimeError(
+        f"{name}: the CUDA kernels are forward-only; call the op in "
+        "pytorch_points_tpu_torch.ops (an autograd Function), or run "
+        "under torch.no_grad()/inference_mode()"
+    )
 
 
 def stream(t: torch.Tensor) -> int:
-    """Handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Handle of PyTorch's current stream on ``t``'s device, read without
+    building a ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def int32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a contiguous int32 tensor, itself when it is one already
+    (a check costs less than a no-op ``to``)."""
+    if t.dtype == torch.int32 and t.is_contiguous():
+        return t
+    return t.to(torch.int32).contiguous()
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

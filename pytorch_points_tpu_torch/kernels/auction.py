@@ -39,10 +39,14 @@ import torch
 from pytorch_points_tpu_torch.core.masking import BIG_COORD
 from pytorch_points_tpu_torch.kernels import _build, dispatch
 
+_ppt_auction = _build.entry("ppt_auction")
+_ppt_auction_state_bytes = _build.entry("ppt_auction_state_bytes")
+_ppt_augment = _build.entry("ppt_augment")
+_ppt_augment_state_bytes = _build.entry("ppt_augment_state_bytes")
+
 _IDX_BIG = 2**30
 _NEG = -1.0e30
 _INF = 1.0e30
-MAX_PHASES = 8  # the kernel's fixed-size per-phase tables
 S_MAX, MAX_ROUNDS = 256, 16  # the reference's endgame rounds
 # Largest per-cloud state (bytes) kept in shared memory; the H100 gives a
 # block up to 227 KB. Larger clouds keep it in a global scratch buffer.
@@ -160,20 +164,18 @@ def auction_cuda(p: torch.Tensor, q: torch.Tensor, eps_k: list[float],
     _build.require(q, "auction q", torch.float32, (b, n, 3))
     if hint is not None:
         _build.require(hint, "auction hint", torch.bool, ())
-    if not 1 <= len(eps_k) <= MAX_PHASES:
-        raise ValueError(f"auction: 1 to {MAX_PHASES} phases, got "
-                         f"{len(eps_k)}")
+    if not eps_k:
+        raise ValueError("auction: needs at least one phase")
     if not 1 <= ti <= n:
         raise ValueError(f"auction: need 1 <= ti <= N', got ti={ti} N'={n}")
-    lib = _build.library()
     owner = torch.empty((b, n), dtype=torch.int32, device=p.device)
     price = torch.empty((b, n), dtype=torch.float32, device=p.device)
-    state = lib.ppt_auction_state_bytes(n, ti)
+    state = _ppt_auction_state_bytes(n, ti)
     scratch = None
     if state > _SMEM_MAX_BYTES:
         scratch = torch.empty(b * state, dtype=torch.uint8, device=p.device)
     phases, eps_arr, bud_arr = _budget_args(eps_k, ladders)
-    err = lib.ppt_auction(
+    err = _ppt_auction(
         p.data_ptr(), q.data_ptr(), b, n, ti, phases, eps_arr, bud_arr,
         _build.ptr(hint), int(warm_start), owner.data_ptr(), price.data_ptr(),
         _build.ptr(scratch), state if scratch is not None else 0,
@@ -278,14 +280,13 @@ def augment_cuda(owner: torch.Tensor, price: torch.Tensor, p: torch.Tensor,
     _build.require(price, "augment price", torch.float32, (b, n))
     _build.require(p, "augment p", torch.float32, (b, n, 3))
     _build.require(q, "augment q", torch.float32, (b, n, 3))
-    lib = _build.library()
     owner_out = torch.empty_like(owner)
     price_out = torch.empty_like(price)
-    state = lib.ppt_augment_state_bytes(n)
+    state = _ppt_augment_state_bytes(n)
     scratch = None
     if state > _SMEM_MAX_BYTES:
         scratch = torch.empty(b * state, dtype=torch.uint8, device=p.device)
-    err = lib.ppt_augment(
+    err = _ppt_augment(
         p.data_ptr(), q.data_ptr(), owner.data_ptr(), price.data_ptr(), b, n,
         float(np.float32(eps)), pop_cap, cap, owner_out.data_ptr(),
         price_out.data_ptr(), _build.ptr(scratch),

@@ -17,6 +17,9 @@ import torch
 from pytorch_points_tpu_torch.core.masking import poison_points
 from pytorch_points_tpu_torch.kernels import _build, dispatch
 
+_ppt_ball_query = _build.entry("ppt_ball_query")
+_ppt_ball_query_coords = _build.entry("ppt_ball_query_coords")
+
 
 def squared_radius(radius: float) -> float:
     """r^2 squared in double and rounded once to float32, as the Pallas
@@ -67,7 +70,7 @@ def ball_query_cuda(xyz: torch.Tensor, centroids: torch.Tensor,
                          f"N={n} nsample={nsample}")
     idx = torch.empty((b, p, nsample), dtype=torch.int32, device=xyz.device)
     cnt = torch.empty((b, p), dtype=torch.int32, device=xyz.device)
-    err = _build.library().ppt_ball_query(
+    err = _ppt_ball_query(
         xyz.data_ptr(), centroids.data_ptr(), b, n, p, nsample,
         squared_radius(radius), idx.data_ptr(), cnt.data_ptr(),
         _build.stream(xyz),
@@ -128,7 +131,7 @@ def ball_query_coords_cuda(xyz: torch.Tensor, centroids: torch.Tensor,
     cnt = torch.empty((b, p), dtype=torch.int32, device=xyz.device)
     g = torch.empty((b, p, nsample, 3), dtype=torch.float32,
                     device=xyz.device)
-    err = _build.library().ppt_ball_query_coords(
+    err = _ppt_ball_query_coords(
         xyz.data_ptr(), centroids.data_ptr(), p0.data_ptr(), b, n, p,
         nsample, squared_radius(radius), idx.data_ptr(), cnt.data_ptr(),
         g.data_ptr(), _build.stream(xyz),

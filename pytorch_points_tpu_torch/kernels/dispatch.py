@@ -15,7 +15,13 @@ from __future__ import annotations
 
 import torch
 
+from pytorch_points_tpu_torch.kernels import AVAILABLE
+
 IMPLS = ("auto", "cuda", "torch")
+# the reference's values, which the telemetry functions (``chamfer_path``,
+# ``knn_path``) also take: the port holds the reference's Pallas semantics
+# on every route, so both answer the route the port takes
+REFERENCE_IMPLS = ("pallas", "xla")
 
 
 def resolve(impl: str, x: torch.Tensor, op: str) -> str:
@@ -25,8 +31,6 @@ def resolve(impl: str, x: torch.Tensor, op: str) -> str:
     if impl == "auto":
         impl = "cuda" if x.is_cuda else "torch"
     if impl == "cuda":
-        from pytorch_points_tpu_torch.kernels import AVAILABLE
-
         if not x.is_cuda:
             raise ValueError(
                 f"{op}: impl='cuda' needs a CUDA tensor, got one on {x.device}"

@@ -19,6 +19,9 @@ import torch
 from pytorch_points_tpu_torch.core.masking import BIG_COORD
 from pytorch_points_tpu_torch.kernels import _build, dispatch
 
+_ppt_nn_dense = _build.entry("ppt_nn_dense")
+_ppt_nn_worklist = _build.entry("ppt_nn_worklist")
+
 # Query rows per block of the plain version: at most this many (p, q) pairs
 # are materialised at once, so it runs at B=32 N=M=16384 (a dense
 # [32, 16384, 16384] distance tensor would be 34 GB).
@@ -61,7 +64,7 @@ def nn_one_direction_cuda(p: torch.Tensor, q: torch.Tensor):
     _build.require(q, "nn_dense q", torch.float32, (b, m, 3))
     dist = torch.empty((b, n), dtype=torch.float32, device=p.device)
     idx = torch.empty((b, n), dtype=torch.int32, device=p.device)
-    err = _build.library().ppt_nn_dense(
+    err = _ppt_nn_dense(
         p.data_ptr(), q.data_ptr(), b, n, m, dist.data_ptr(), idx.data_ptr(),
         _build.stream(p),
     )
@@ -240,7 +243,7 @@ def run_worklist_cuda(pp: torch.Tensor, qp: torch.Tensor,
         nr, nc = rows.shape[1], cols.shape[1]
         dist = torch.empty((b, nr), dtype=torch.float32, device=pp.device)
         ids = torch.empty((b, nr), dtype=torch.int32, device=pp.device)
-        err = _build.library().ppt_nn_worklist(
+        err = _ppt_nn_worklist(
             rows.data_ptr(), cols.data_ptr(), codes.data_ptr(),
             count.data_ptr(), b, nr, nc, t_row, t_col, k_max,
             dist.data_ptr(), ids.data_ptr(), _build.stream(pp),

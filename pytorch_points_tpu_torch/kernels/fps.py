@@ -11,6 +11,8 @@ import torch
 
 from pytorch_points_tpu_torch.kernels import _build, dispatch
 
+_ppt_fps = _build.entry("ppt_fps")
+
 # Largest running min-distance buffer (N * 4 bytes) kept in shared memory;
 # the H100 gives a block up to 227 KB. Larger clouds use a scratch buffer.
 _SMEM_MAX_BYTES = 200 * 1024
@@ -63,7 +65,7 @@ def fps_cuda(xyz: torch.Tensor, k: int, mask: torch.Tensor | None = None,
     scratch = None
     if n * 4 > _SMEM_MAX_BYTES:
         scratch = torch.empty((b, n), dtype=torch.float32, device=xyz.device)
-    err = _build.library().ppt_fps(
+    err = _ppt_fps(
         xyz.data_ptr(), _build.ptr(mask), _build.ptr(seed_idx), b, n, k,
         idx.data_ptr(), coords.data_ptr(), _build.ptr(scratch),
         _build.stream(xyz),

@@ -5,7 +5,9 @@ CUDA kernel: ``csrc/gather.cu``, which replaces both TPU kernels,
 and ``::_gather_kernel`` (``gather_rows``, the older layout). The two
 compute the same function, out[b,k,:] = f[b,idx[b,k],:] as [B,K,C], and
 differ only in their layout inside the TPU kernel, so one CUDA kernel serves
-both names. The header note there says what bounds it on the card.
+both names. The header note there says what bounds it on the card. A
+call is one launch; its host path is ``_build``'s (the argument checks,
+``torch.empty``, the raw stream handle and the ctypes call).
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 import torch
 
 from pytorch_points_tpu_torch.kernels import _build, dispatch
+
+_ppt_gather_rows = _build.entry("ppt_gather_rows")
 
 
 def gather_rows_torch(features: torch.Tensor, idx: torch.Tensor):
@@ -31,7 +35,7 @@ def gather_rows_cuda(features: torch.Tensor, idx: torch.Tensor):
     _build.require(features, "gather features", torch.float32, (b, n, c))
     _build.require(idx, "gather idx", torch.int32, (b, k))
     out = torch.empty((b, k, c), dtype=torch.float32, device=features.device)
-    err = _build.library().ppt_gather_rows(
+    err = _ppt_gather_rows(
         features.data_ptr(), idx.data_ptr(), b, n, k, c, out.data_ptr(),
         _build.stream(features),
     )
@@ -47,8 +51,7 @@ def gather_rows(features: torch.Tensor, idx: torch.Tensor,
                 impl: str = "auto"):
     """[B,N,C] features, [B,K] indices -> [B,K,C], exact."""
     if dispatch.resolve(impl, features, "gather") == "cuda":
-        return gather_rows_cuda(features.contiguous(),
-                                idx.to(torch.int32).contiguous())
+        return gather_rows_cuda(features.contiguous(), _build.int32(idx))
     return gather_rows_torch(features, idx)
 
 

@@ -37,6 +37,9 @@ from pytorch_points_tpu_torch.kernels.distance_tiles import (
 )
 from pytorch_points_tpu_torch.kernels.scatter import scatter_add
 
+_ppt_nn_band = _build.entry("ppt_nn_band")
+_ppt_nn_resident = _build.entry("ppt_nn_resident")
+
 # Tile sizes of the reference's nndistance_indexed / nndistance_sums:
 # resident rows (tn) and columns (tm), fine AABB sub-tiles (ft), band rows
 # (tb), band window tiles (tbq) over q subsampled by ``STRIDE``.
@@ -131,7 +134,7 @@ def _launch_band(ps: torch.Tensor, qsub: torch.Tensor, tb: int, tbq: int,
     if centers is not None:
         _build.require(centers, "nn_band centers", torch.int32, (b, ni))
     out = torch.empty((b, n), dtype=torch.float32, device=ps.device)
-    err = _build.library().ppt_nn_band(
+    err = _ppt_nn_band(
         ps.data_ptr(), qsub.data_ptr(), _build.ptr(centers), b, ni, mq, tb,
         tbq, out.data_ptr(), _build.stream(ps),
     )
@@ -293,7 +296,7 @@ def nn_resident_cuda(ps: torch.Tensor, qs: torch.Tensor, qid: torch.Tensor,
                          f"nj={nj}")
     dist = torch.empty((b, np_), dtype=torch.float32, device=ps.device)
     ids = torch.empty((b, np_), dtype=torch.int32, device=ps.device)
-    err = _build.library().ppt_nn_resident(
+    err = _ppt_nn_resident(
         ps.data_ptr(), qs.data_ptr(), qid.data_ptr(), cand.data_ptr(), b, ni,
         nj, tn, tm, dist.data_ptr(), ids.data_ptr(), _build.stream(ps),
     )

@@ -3,7 +3,10 @@
 CUDA kernel: ``csrc/scatter.cu``, which replaces both TPU forms,
 ``pytorch_points_tpu/kernels/scatter.py::_scatter_kernel_t``
 (``scatter_add_csum_t``) and ``::_scatter_kernel`` (``scatter_add_csum``).
-The header note there says what bounds it on the card.
+Two launches a call and no torch glue: the first builds each cloud's run
+table on the card (a stable radix sort of the target rows by a cluster of
+blocks per cloud), the second sums each row's run in ascending k. The header
+note there says what bounds it.
 """
 
 from __future__ import annotations
@@ -11,6 +14,8 @@ from __future__ import annotations
 import torch
 
 from pytorch_points_tpu_torch.kernels import _build, dispatch
+
+_ppt_scatter_add = _build.entry("ppt_scatter_add")
 
 
 def _row_keys(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -44,19 +49,13 @@ def scatter_add_cuda(idx: torch.Tensor, updates: torch.Tensor, n: int):
     if b * k >= 2**31 or b * n >= 2**31:
         raise ValueError(f"scatter: B*K={b * k} and B*n={b * n} must be "
                          "below 2^31")
-    keys, order = torch.sort(_row_keys(idx, n), stable=True)
-    order = order.to(torch.int32)
-    # row r's updates are order[offsets[r]:offsets[r + 1]]: offsets[r] is
-    # the count of keys below r (a search of the sorted keys, which, unlike
-    # a bincount, needs no host sync)
-    offsets = torch.searchsorted(
-        keys, torch.arange(b * n + 1, device=idx.device), out_int32=True)
     out = torch.empty((b, n, c), dtype=torch.float32, device=idx.device)
-    err = _build.library().ppt_scatter_rows(
-        updates.data_ptr(), order.data_ptr(), offsets.data_ptr(), b * n, c,
-        out.data_ptr(), _build.stream(updates),
-    )
-    _build.check(err, "ppt_scatter_rows")
+    scratch = torch.empty(4 * b * k + b * (n + 1), dtype=torch.int32,
+                          device=idx.device)
+    err = _ppt_scatter_add(idx.data_ptr(), updates.data_ptr(), b, k, n, c,
+                           scratch.data_ptr(), out.data_ptr(),
+                           _build.stream(idx))
+    _build.check(err, "ppt_scatter_add")
     scatter_add_cuda.launches += 1
     return out
 
@@ -69,6 +68,5 @@ def scatter_add(idx: torch.Tensor, updates: torch.Tensor, n: int,
     """idx [B,K] int, updates [B,K,C] f32 -> [B,n,C]: each row the sum of
     its updates in ascending k; indices outside [0, n) are dropped."""
     if dispatch.resolve(impl, updates, "scatter") == "cuda":
-        return scatter_add_cuda(idx.to(torch.int32).contiguous(),
-                                updates.contiguous(), n)
+        return scatter_add_cuda(_build.int32(idx), updates.contiguous(), n)
     return scatter_add_torch(idx, updates, n)

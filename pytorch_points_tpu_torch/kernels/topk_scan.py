@@ -8,10 +8,14 @@ scan); ``csrc/knn_ring.cu`` replaces ``::_knn_ring_kernel`` (K9),
 and ``::_knn_ring_stats_kernel`` (the same scan with per-tile counters). The
 header notes there say what bounds them on the card.
 
-:func:`knn` dispatches as the reference does: a support of ``RING_MIN_NS``
-points or more (and fewer than 2^24) takes the ring scan, or its masked form
-when ``masked`` marks poisoned rows, whose raw coordinates must not enter a
-Morton AABB; a smaller one, or ``sorted_ok=False``, the streaming scan.
+:func:`knn` dispatches as the reference does: an xyz support of
+``RING_MIN_NS`` points or more (and fewer than 2^24) takes the ring scan, or
+its masked form when ``masked`` marks poisoned rows, whose raw coordinates
+must not enter a Morton AABB; a smaller one, or ``sorted_ok=False``, the
+streaming scan. A cloud of C != 3 channels always takes the streaming scan
+over all C channels (the ring's Morton sort is defined on xyz), as the
+reference's documented [B,N,C] contract and its XLA path have it; its
+Pallas scan reads three channels. Every scan takes any 1 <= k <= Ns.
 """
 
 from __future__ import annotations
@@ -21,13 +25,16 @@ import torch
 from pytorch_points_tpu_torch.core.masking import BIG_COORD
 from pytorch_points_tpu_torch.kernels import _build, dispatch, nn_sorted
 
-MAX_K = 64
+_ppt_knn = _build.entry("ppt_knn")
+_ppt_knn_ring = _build.entry("ppt_knn_ring")
+
 # The ring scan serves supports of this size and up: below it the sort and
 # un-permute cost more than the chunk skip saves (the reference's value).
 RING_MIN_NS = 8192
 # Ids ride a float32 channel: 2^24 is the pad rows' id and caps the support.
 _IDX_RING = 2**24
 TQ = TM = 512  # ring scan: queries per tile, support rows per chunk
+_REG_LIST_MAX = 64  # the ring kernel's largest list kept in registers
 UNROLL = 2  # the reference's extractions per while-loop trip (counters only)
 
 
@@ -36,30 +43,34 @@ def _round_up(v: int, m: int) -> int:
 
 
 def knn_torch(query: torch.Tensor, support: torch.Tensor, k: int):
-    """Plain version: [B,Nq,3], [B,Ns,3] -> (d [B,Nq,k] ascending, idx int32).
+    """Plain version: [B,Nq,C], [B,Ns,C] -> (d [B,Nq,k] ascending, idx
+    int32).
 
-    d in the diff^2 form; a stable sort keeps the lowest index first among
-    equal distances.
+    d in the diff^2 form summed over the channels in index order, (((dx0^2
+    + dx1^2) + dx2^2) + ...); a stable sort keeps the lowest index first
+    among equal distances.
     """
-    dx, dy, dz = (query[:, :, None, c] - support[:, None, :, c]
-                  for c in range(3))
-    d = (dx * dx + dy * dy) + dz * dz
+    d = None
+    for c in range(query.shape[-1]):
+        dc = query[:, :, None, c] - support[:, None, :, c]
+        d = dc * dc if d is None else d + dc * dc
     d, idx = torch.sort(d, dim=-1, stable=True)
     return d[..., :k], idx[..., :k].to(torch.int32)
 
 
 def knn_cuda(query: torch.Tensor, support: torch.Tensor, k: int):
-    """Launch the CUDA kernel: same contract as :func:`knn_torch`, k <= 64."""
-    b, nq, _ = query.shape
+    """Launch the CUDA kernel: same contract as :func:`knn_torch`, any C,
+    1 <= k <= Ns (passes of 64 above 64)."""
+    b, nq, c = query.shape
     ns = support.shape[1]
-    _build.require(query, "knn query", torch.float32, (b, nq, 3))
-    _build.require(support, "knn support", torch.float32, (b, ns, 3))
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"knn kernel supports 1 <= k <= {MAX_K}, got {k}")
+    _build.require(query, "knn query", torch.float32, (b, nq, c))
+    _build.require(support, "knn support", torch.float32, (b, ns, c))
+    if not 1 <= k <= ns:
+        raise ValueError(f"knn kernel needs 1 <= k <= Ns={ns}, got {k}")
     d = torch.empty((b, nq, k), dtype=torch.float32, device=query.device)
     idx = torch.empty((b, nq, k), dtype=torch.int32, device=query.device)
-    err = _build.library().ppt_knn(
-        query.data_ptr(), support.data_ptr(), b, nq, ns, k, d.data_ptr(),
+    err = _ppt_knn(
+        query.data_ptr(), support.data_ptr(), b, nq, ns, c, k, d.data_ptr(),
         idx.data_ptr(), _build.stream(query),
     )
     _build.check(err, "ppt_knn")
@@ -195,21 +206,31 @@ def _launch_ring(qsp, sup4, k, centers, unroll, stats):
     m_pad = sup4.shape[1]
     _build.require(qsp, "knn_ring query", torch.float32, (b, q_pad, 3))
     _build.require(sup4, "knn_ring support", torch.float32, (b, m_pad, 4))
-    if q_pad % TQ or m_pad % TM or not 1 <= k <= MAX_K or unroll < 1:
+    if q_pad % TQ or m_pad % TM or not 1 <= k <= m_pad or unroll < 1:
         raise ValueError(f"knn_ring kernel: q_pad={q_pad} and m_pad={m_pad} "
-                         f"must be multiples of {TQ}, 1 <= k={k} <= {MAX_K}, "
+                         f"must be multiples of {TQ}, 1 <= k={k} <= m_pad, "
                          f"unroll={unroll} >= 1")
     if centers is not None:
         _build.require(centers, "knn_ring centers", torch.int32,
                        (b, q_pad // TQ))
-    d = torch.empty((b, q_pad, k), dtype=torch.float32, device=qsp.device)
-    ids = torch.empty((b, q_pad, k), dtype=torch.int32, device=qsp.device)
+    dev = qsp.device
+    kp = _round_up(k, 8)
+    d = torch.empty((b, q_pad, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((b, q_pad, k), dtype=torch.int32, device=dev)
     counters = torch.empty((b, q_pad // TQ, 2), dtype=torch.int32,
-                           device=qsp.device) if stats else None
-    err = _build.library().ppt_knn_ring(
+                           device=dev) if stats else None
+    # above 64 entries each query's list lives in global scratch
+    wide = kp > _REG_LIST_MAX
+    list_d = torch.empty(b * q_pad * kp, dtype=torch.float32,
+                         device=dev) if wide else None
+    list_i = torch.empty_like(list_d, dtype=torch.int32) if wide else None
+    list_f = torch.empty_like(list_d, dtype=torch.uint8) if wide and stats \
+        else None
+    err = _ppt_knn_ring(
         qsp.data_ptr(), sup4.data_ptr(), _build.ptr(centers), b, q_pad,
-        m_pad, k, _round_up(k, 8), unroll, d.data_ptr(), ids.data_ptr(),
-        _build.ptr(counters), _build.stream(qsp),
+        m_pad, k, kp, unroll, d.data_ptr(), ids.data_ptr(),
+        _build.ptr(counters), _build.ptr(list_d), _build.ptr(list_i),
+        _build.ptr(list_f), _build.stream(qsp),
     )
     _build.check(err, "ppt_knn_ring")
     return d, ids, counters
@@ -328,19 +349,28 @@ def knn_ring_stats(query: torch.Tensor, support: torch.Tensor, k: int,
 # ---------------------------------------------------------------------------
 
 
+def takes_ring(support: torch.Tensor, sorted_ok: bool = True) -> bool:
+    """Whether :func:`knn` serves this support with the ring scan: an xyz
+    cloud of ``RING_MIN_NS`` to 2^24 points, unless ``sorted_ok=False``."""
+    ns = support.shape[1]
+    return (sorted_ok and support.shape[-1] == 3
+            and RING_MIN_NS <= ns < _IDX_RING)
+
+
 def knn(query: torch.Tensor, support: torch.Tensor, k: int,
         impl: str = "auto", sorted_ok: bool = True, masked: bool = False):
-    """[B,Nq,3], [B,Ns,3] -> (dist [B,Nq,k] squared ascending, idx int32).
+    """[B,Nq,C], [B,Ns,C] -> (dist [B,Nq,k] squared ascending, idx int32).
 
-    Exact, lowest-index ties. Masked supports arrive poisoned
-    (``ops.grouping.knn``) with ``masked=True``. Supports of ``RING_MIN_NS``
-    to 2^24 points take the ring scan; ``sorted_ok=False`` forces the
-    streaming scan (the ring scan's cross-check).
+    Exact, lowest-index ties, any 1 <= k <= Ns. Masked supports arrive
+    poisoned (``ops.grouping.knn``) with ``masked=True``. xyz supports of
+    ``RING_MIN_NS`` to 2^24 points take the ring scan; ``sorted_ok=False``
+    forces the streaming scan (the ring scan's cross-check), which every
+    C != 3 cloud takes.
     """
     ns = support.shape[1]
     if k > ns:
         raise ValueError(f"k={k} > support size {ns}")
-    if sorted_ok and RING_MIN_NS <= ns < _IDX_RING:
+    if takes_ring(support, sorted_ok):
         ring = knn_ring_masked if masked else knn_ring
         return ring(query, support, k, impl)
     query = query.to(torch.float32)

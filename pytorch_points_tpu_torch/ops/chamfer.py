@@ -20,7 +20,11 @@ from __future__ import annotations
 import torch
 
 from pytorch_points_tpu_torch.core.masking import BIG_DISTANCE, poison_points
-from pytorch_points_tpu_torch.kernels import distance_tiles, nn_sorted
+from pytorch_points_tpu_torch.kernels import (
+    dispatch,
+    distance_tiles,
+    nn_sorted,
+)
 from pytorch_points_tpu_torch.kernels.gather import gather_rows
 from pytorch_points_tpu_torch.ops.scatter_impl import scatter_add_auto
 
@@ -135,14 +139,23 @@ def nndistance(p: torch.Tensor, q: torch.Tensor,
 
 def chamfer_path(p: torch.Tensor, q: torch.Tensor,
                  p_mask: torch.Tensor | None = None,
-                 q_mask: torch.Tensor | None = None,
+                 q_mask: torch.Tensor | None = None, impl: str = "auto",
                  reduction: str = "none") -> str:
     """Telemetry: which scan serves a chamfer/nndistance call with these
-    arguments: "sorted_loss" (Morton-pruned, loss-only: the mean/sum
-    ``chamfer_distance`` path), "sorted" (Morton-pruned, indexed),
-    "sorted_masked" (masked Morton-pruned, K7 + K6) or "dense" (K5)."""
+    arguments, in the reference's signature and named as the reference
+    names its Pallas routes: "sorted_loss" (Morton-pruned, loss-only: the
+    mean/sum ``chamfer_distance`` path, K6), "sorted" (Morton-pruned,
+    indexed, K6), "sorted_masked" (masked Morton-pruned, K7 + K6) or
+    "dense-pallas" (the dense scan, K5, the reference's ``_nn_both_kernel``).
+    ``impl`` takes the port's values and the reference's "pallas" and
+    "xla". The port holds the Pallas semantics for every ``impl``, kernels
+    and plain versions alike, so every one answers the route the port
+    takes, and it never answers the reference's "xla"."""
+    impls = dispatch.IMPLS + dispatch.REFERENCE_IMPLS
+    if impl not in impls:
+        raise ValueError(f"impl must be one of {impls}, got {impl!r}")
     if not _sorted_size_ok(p, q):
-        return "dense"
+        return "dense-pallas"
     if p_mask is not None or q_mask is not None:
         return "sorted_masked"
     return "sorted_loss" if reduction in ("mean", "sum") else "sorted"
@@ -162,7 +175,7 @@ def chamfer_distance(p: torch.Tensor, q: torch.Tensor,
     """
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"unknown reduction {reduction!r}")
-    if chamfer_path(p, q, p_mask, q_mask, reduction) == "sorted_loss":
+    if chamfer_path(p, q, p_mask, q_mask, impl, reduction) == "sorted_loss":
         s1, s2 = _ChamferSumsSorted.apply(p.to(torch.float32),
                                           q.to(torch.float32), impl)
         if reduction == "mean":

@@ -15,10 +15,10 @@ Reference semantics:
 
 Indices carry no gradient: the searches run on detached clouds. kNN
 distances are differentiable in both clouds with the neighbour set held
-constant, as the reference's ``custom_vjp`` has it. A kNN over a support of
-``topk_scan.RING_MIN_NS`` points or more takes the Morton-ring scan (K9, or
-K10 for a masked support), a smaller one the streaming scan (K8):
-``knn_path`` names the route.
+constant, as the reference's ``custom_vjp`` has it. A kNN over an xyz
+support of ``topk_scan.RING_MIN_NS`` points or more takes the Morton-ring
+scan (K9, or K10 for a masked support), a smaller one, or any cloud of
+C != 3 channels, the streaming scan (K8): ``knn_path`` names the route.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from pytorch_points_tpu_torch.core.masking import poison_points
-from pytorch_points_tpu_torch.kernels import ballquery, topk_scan
+from pytorch_points_tpu_torch.kernels import ballquery, dispatch, topk_scan
 from pytorch_points_tpu_torch.kernels.gather import gather_rows
 from pytorch_points_tpu_torch.ops.sampling import (
     furthest_point_sample_and_gather,
@@ -72,8 +72,9 @@ def knn(query: torch.Tensor, support: torch.Tensor, k: int,
         support_mask: torch.Tensor | None = None, impl: str = "auto"):
     """k nearest neighbours of each query point among the support points.
 
-    [B,Nq,3], [B,Ns,3] -> (dist [B,Nq,k] squared ascending, idx [B,Nq,k]
-    int32). Invalid support points (``support_mask`` False) are poisoned
+    [B,Nq,C], [B,Ns,C] -> (dist [B,Nq,k] squared ascending, idx [B,Nq,k]
+    int32), any C and any 1 <= k <= Ns, the distance summed over all C
+    channels. Invalid support points (``support_mask`` False) are poisoned
     far away and never returned while the cloud has >= k valid points.
     Differentiable in ``dist`` wrt both clouds, the neighbour set held
     constant.
@@ -83,13 +84,23 @@ def knn(query: torch.Tensor, support: torch.Tensor, k: int,
 
 
 def knn_path(query: torch.Tensor, support: torch.Tensor, k: int,
-             support_mask: torch.Tensor | None = None) -> str:
-    """Telemetry: which scan serves a ``knn`` call with these arguments:
-    "ring" (Morton-sorted, AABB chunk skip: K9), "ring_masked" (valid-AABB
-    sort, poison last, a table of ring centres: K10) or "stream" (the
-    in-order scan, K8). The plain versions take the same routes."""
-    ns = support.shape[1]
-    if topk_scan.RING_MIN_NS <= ns < topk_scan._IDX_RING:
+             support_mask: torch.Tensor | None = None,
+             impl: str = "auto") -> str:
+    """Telemetry: which scan serves a ``knn`` call with these arguments,
+    named as the reference names its Pallas routes: "ring" (Morton-sorted,
+    AABB chunk skip: K9, the reference's ``_knn_ring_kernel``),
+    "ring_masked" (valid-AABB sort, poison last, a table of ring centres:
+    K10, its ``_knn_ring_kernel_pf``) or "stream" (the in-order scan, K8,
+    its ``_knn_kernel``; also every C != 3 cloud, which the reference's
+    Pallas scan would read on three channels). ``impl`` takes the port's
+    values and the reference's "pallas" and "xla". The port takes these
+    routes for every ``impl``, kernels and plain versions alike, so every
+    one answers the route the port takes, and it never answers the
+    reference's "xla"."""
+    impls = dispatch.IMPLS + dispatch.REFERENCE_IMPLS
+    if impl not in impls:
+        raise ValueError(f"impl must be one of {impls}, got {impl!r}")
+    if topk_scan.takes_ring(support):
         return "ring" if support_mask is None else "ring_masked"
     return "stream"
 

@@ -308,8 +308,10 @@ def test_chamfer_distance_matches_jax(monkeypatch, reduction,
         monkeypatch.setattr(jax_chamfer, "_SORTED_MIN_POINTS", 256)
         monkeypatch.setattr(chamfer, "_SORTED_MIN_POINTS", 256)
     p, q = nn_inputs("random", 640, 512)
-    want = {("dense", "mean"): "dense", ("dense", "sum"): "dense",
-            ("dense", "none"): "dense", ("sorted", "mean"): "sorted_loss",
+    want = {("dense", "mean"): "dense-pallas",
+            ("dense", "sum"): "dense-pallas",
+            ("dense", "none"): "dense-pallas",
+            ("sorted", "mean"): "sorted_loss",
             ("sorted", "sum"): "sorted_loss", ("sorted", "none"): "sorted"}
     assert chamfer.chamfer_path(_t(p), _t(q), reduction=reduction) == (
         want[path, reduction])

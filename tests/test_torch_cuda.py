@@ -179,23 +179,60 @@ def test_nn_pruned_cuda_matches_plain_and_dense(dev, kind):
     _assert_same(got, dense)  # tie-free clouds
 
 
-@pytest.mark.parametrize("c", [3, 128])
+@pytest.mark.parametrize("c", [1, 3, 4, 5, 8, 128])
 def test_gather_cuda_matches_plain(dev, c):
+    # C <= 4: a thread a row; C % 4 == 0: 16-byte vectors; else scalars
     rng = np.random.default_rng(3)
     f, idx = _on(dev, rng.standard_normal((2, 500, c)).astype(np.float32),
-                 rng.integers(0, 500, (2, 4096)).astype(np.int32))
+                 rng.integers(0, 500, (2, 4100)).astype(np.int32))
     with torch.inference_mode():
         got = gather.gather_rows(f, idx, impl="cuda")
         ref = gather.gather_rows(f, idx, impl="torch")
         older = gather.gather_rows_t(f, idx, impl="cuda")
-    _assert_same([got, older], [ref, ref])
+        # rows 4 bytes off a 16-byte boundary take the scalar instance
+        odd = torch.empty(f.numel() + 1, device=dev)[1:].view(f.shape)
+        odd.copy_(f)
+        shifted = gather.gather_rows(odd, idx, impl="cuda")
+    _assert_same([got, older, shifted], [ref, ref, ref])
 
 
-@pytest.mark.parametrize("k", [3, 16, 64])
+@pytest.mark.parametrize("c", [4, 64])
+def test_gather_cuda_past_32_bit_offsets(dev, c):
+    # B N C above 2^31: the 64-bit index instances, rows read past 2^31
+    n = 2**30 // c + 16  # 8.6 GB of features
+    f = torch.empty((2, n, c), dtype=torch.float32, device=dev).uniform_()
+    rng = np.random.default_rng(5)
+    (idx,) = _on(dev, np.concatenate(
+        [rng.integers(0, n, (2, 2048)), n - 1 - rng.integers(0, 16, (2, 64))],
+        axis=1).astype(np.int32))
+    with torch.inference_mode():
+        got = gather.gather_rows(f, idx, impl="cuda")
+        ref = gather.gather_rows(f, idx, impl="torch")
+    _assert_same([got], [ref])
+
+
+@pytest.mark.parametrize("k", [3, 16, 64, 65, 128])
 @pytest.mark.parametrize("kind", ["random", "grid"])
 def test_knn_cuda_matches_plain(dev, k, kind):
+    # k > 64: passes of 64 with a lexicographic floor
     rng = np.random.default_rng(4)
     q, s = _on(dev, cloud(rng, 2, 700, kind), cloud(rng, 2, 1100, kind))
+    with torch.inference_mode():
+        got = topk_scan.knn(q, s, k, impl="cuda")
+        ref = topk_scan.knn(q, s, k, impl="torch")
+    _assert_same(got, ref)
+
+
+@pytest.mark.parametrize("k", [17, 70])
+@pytest.mark.parametrize("c", [1, 5, 24, 96])
+def test_knn_cuda_any_channels_matches_plain(dev, c, k):
+    # the general-C scan: channels staged 32 at a time, summed in order;
+    # grid features (k/8) give exact ties
+    rng = np.random.default_rng(6)
+    q = (rng.integers(0, 8, (2, 600, c)) / 8).astype(np.float32)
+    s = rng.standard_normal((2, 900, c)).astype(np.float32)
+    s[:, 300:] = (rng.integers(0, 8, (2, 600, c)) / 8)
+    q, s = _on(dev, q, s)
     with torch.inference_mode():
         got = topk_scan.knn(q, s, k, impl="cuda")
         ref = topk_scan.knn(q, s, k, impl="torch")
@@ -312,9 +349,10 @@ def _ring_cases(kind, b, nq, ns):
     return q, s
 
 
-@pytest.mark.parametrize("k", [5, 16, 33])
+@pytest.mark.parametrize("k", [5, 16, 33, 100])
 @pytest.mark.parametrize("kind", ["random", "grid"])
 def test_knn_ring_cuda_matches_plain(dev, kind, k):
+    # k = 100: each query's list of 104 entries in global scratch
     # ns=9000 pads the last chunk with the id-2^24 rows
     q, s = _on(dev, *_ring_cases(kind, 2, 3000, 9000))
     n_valid = torch.tensor([[9000], [5432]], device=dev)
@@ -421,6 +459,46 @@ def test_auction_cuda_reads_the_hint_on_the_card(dev, hint):
     ref = auction._auction_owner(p, q, 0.005, 2, 256, 3, 6.0, (), True, flag,
                                  (4, 3, 2), impl="torch")
     _assert_same(got[:2], ref[:2])
+
+
+def test_auction_cuda_takes_nine_phases(dev):
+    # past the 8 phases one launch holds: a second launch warm-starts from
+    # the first one's prices
+    p, q, _, _ = _auction_inputs("normal")
+    p, q = _on(dev, p, q)
+    flag = torch.tensor(True, device=dev)
+    ladder = (4, 3, 2, 2, 2, 2, 2, 2, 3)
+    got = auction._auction_owner(p, q, 0.005, 2, 256, 9, 2.0, (), True, flag,
+                                 ladder, impl="cuda")
+    ref = auction._auction_owner(p, q, 0.005, 2, 256, 9, 2.0, (), True, flag,
+                                 ladder, impl="torch")
+    _assert_same(got[:2], ref[:2])
+
+
+def test_scatter_cuda_launches_two_kernels_a_call(dev):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    idx, upd, n = scatter_inputs("large")
+    i, u = _on(dev, idx, upd)
+    scatter.scatter_add(i, u, n, impl="cuda")  # builds
+    torch.cuda.synchronize()
+    # a trace can lose its first device items: it opens on a short spin
+    # kernel, and only the items after the spin are counted
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            scatter.scatter_add(i, u, n, impl="cuda")
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        marks = [e.time_range.start for e in device
+                 if "spin_kernel" in e.name]
+        if marks:
+            break
+    assert marks, "every trace lost its opening spin kernel"
+    kernels = [e for e in device if e.time_range.start > max(marks)]
+    assert len(kernels) == 2, [e.name for e in kernels]
 
 
 def test_auction_and_augment_cuda_scratch_path(dev):

@@ -83,6 +83,10 @@ SCATTER_CASES = {
     "empty_rows": dict(b=2, k=300, n=2000, c=5),  # most rows get nothing
     "permutation": dict(b=2, k=1000, n=1000, c=2),
     "out_of_range": dict(b=2, k=500, n=100, c=3),  # some idx < 0 or >= n
+    "long_row": dict(b=2, k=8192, n=500, c=3),  # 4096 updates into row 7
+    "large": dict(b=2, k=65536, n=16384, c=3),  # two radix passes of 7 bits
+    "all_out_of_range": dict(b=2, k=300, n=50, c=3),  # every idx dropped
+    "many_rows": dict(b=1, k=131072, n=140000, c=2),  # three radix passes
 }
 
 
@@ -95,6 +99,13 @@ def scatter_inputs(case):
         idx = np.stack([rng.permutation(n) for _ in range(b)])
     elif case == "out_of_range":
         idx = rng.integers(-20, n + 20, (b, k))
+    elif case == "long_row":
+        idx = rng.integers(0, n, (b, k))
+        idx[:, rng.permutation(k)[:4096]] = 7
+    elif case == "all_out_of_range":
+        idx = np.where(rng.uniform(size=(b, k)) < 0.5,
+                       rng.integers(-9, 0, (b, k)), rng.integers(n, 2 * n,
+                                                                 (b, k)))
     else:
         idx = rng.integers(0, n, (b, k))
     upd = rng.standard_normal((b, k, c)).astype(np.float32)
