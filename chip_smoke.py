@@ -22,10 +22,16 @@ Phases, in order; any failure raises and exits non-zero:
    summation orders of the plain version on the card (which uses atomics),
    at the masked headline's two chamfer-backward scatters (real indices
    from its masked NN, a 4096-update row in each) too; the auction (K11)
-   and its JV endgame
-   (K12) with owners and prices bitwise equal, on config 4's normal clouds,
-   gaussian-mixture, tie-grid, padded (N=2000) and masked clouds, both
-   budget ladders, and a small endgame pop cap; the Morton-ring kNN (K9),
+   and its JV endgame (K12) with owners, prices and work counters (K11's
+   bidder scans and sweeps a phase, K12's pops and capped stragglers a
+   cloud) bitwise equal, on config 4's normal clouds, gaussian-mixture,
+   tie-grid, padded (N=2000) and masked clouds, both budget ladders, B=140
+   (more clouds than SMs), N' = 256, 1024 and 4096, pop caps 1 and 8, and
+   q = p (no straggler for K12); at config 4 the counters' summary (pops
+   a cloud, capped share, us a pop, bidder scans, ms per million pair
+   evaluations) and K12 on each register block size (128, 256, 512, 1024
+   threads) beside the least time of one pop there (clock64 around a block
+   argmin) and the latency bound it gives; the Morton-ring kNN (K9),
    its masked form (K10) and its stats twin at config 6's shapes, and the
    band with window centres (K7) at the masked headline's, K9 and K10 also
    against the streaming kNN (K8) at B=4 N=16384 with forced ties and
@@ -158,6 +164,8 @@ RING_WIDE_K = 100  # K9/K10 past the register lists
 CONFIG7_C = (24, 96)  # config 7's feature-space graphs (edge1, edge2)
 CONFIG7 = dict(b=8, n=2048, k=17)
 AUCTION_PHASES = 9  # past the 8 phases one K11 launch holds
+AUGMENT_BLOCKS = (128, 256, 512)  # K12's register instances at N' = 2048
+FLOOR_CLUSTERS = (2, 4)  # a pop's floor were a cloud split over SMs
 SPLIT_KERNELS = ("gather", "scatter")  # also timed device-only
 DEVICE_CALLS = 5  # calls traced for a device-only time
 
@@ -979,16 +987,72 @@ def hold_against_plain(torch, case, stats):
         print(line)
     s = stats[name]
     s["max_abs_err"] = max(s["max_abs_err"], err)
+    s["last_ms"] = ms
     if "ms" not in s:  # the JSON line reports each kernel's 1st case
         s.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                  library_ms=lib_ms)
     return got
 
 
+def k12_blocks(torch, auction, args, ref, longest):
+    """K12 at config 4 on each block size a register instance takes at N' =
+    2048 (128 x 16, 256 x 8, 512 x 4 columns), each held bitwise against
+    the plain version's ``ref``; beside each, the least time of one pop
+    there (one barrier and one block argmin, clock64 and %globaltimer on
+    the card) and the latency bound it gives: the longest cloud's pops
+    times that floor. Then the same floor across a cluster of blocks (a
+    cluster barrier and a distributed-shared-memory exchange a round)."""
+    n = args[2].shape[1]
+    for threads in AUGMENT_BLOCKS:
+        got = auction.augment_cuda(*args, threads=threads)
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            fail(f"augment [config 4, {threads} threads]: differs from plain")
+        ms = cuda_ms(torch, lambda t=threads: auction.augment_cuda(
+            *args, threads=t))
+        cycles, ns = auction.augment_pop_floor(threads)
+        default = " (default)" if threads == auction.augment_threads(n) else ""
+        print(f"            K12 on {threads} threads{default}: equal, {ms!r} "
+              f"ms, {ms * 1e3 / longest!r} us a pop on the longest cloud; pop "
+              f"floor {cycles!r} cycles = {ns!r} ns (clock {cycles / ns!r} "
+              f"GHz), latency bound {longest * ns * 1e-6!r} ms")
+    for cluster in FLOOR_CLUSTERS:
+        cycles, ns = auction.augment_pop_floor(128, cluster)
+        print(f"            pop floor across a cluster of {cluster} blocks of "
+              f"128 threads: {cycles!r} cycles = {ns!r} ns, latency bound "
+              f"{longest * ns * 1e-6!r} ms")
+
+
+def emd_counts(torch, k11, k12, n_pad, k11_ms, k12_ms, stragglers):
+    """Print K11's and K12's counters (owners and prices already held);
+    return the most pops a cloud took."""
+    scans = k11[:, 0].sum(1)
+    pairs = scans.double() * n_pad  # pair evaluations a cloud
+    print(f"            K11 counters: bidder scans a cloud: cloud 0 "
+          f"{int(scans[0])}, mean {scans.double().mean().item()!r}, max "
+          f"{int(scans.max())}; sweeps a phase, cloud 0: "
+          f"{k11[0, 1].tolist()}; {k11_ms / (pairs.max().item() / 1e6)!r} ms "
+          f"per million pair evaluations on the busiest cloud "
+          f"({k11_ms / (pairs.sum().item() / 1e6)!r} over all clouds)")
+    if k12 is None:
+        return
+    pops = k12[:, 0]
+    longest = int(pops.max())
+    print(f"            K12 counters: pops a cloud: max {longest} (cloud "
+          f"{int(pops.argmax())}), mean {pops.double().mean().item()!r}, "
+          f"total {int(pops.sum())}; capped stragglers {int(k12[:, 1].sum())}"
+          f" of {stragglers} ({k12[:, 1].sum().item() / max(1, stragglers)!r}"
+          f"); {k12_ms * 1e3 / max(longest, 1)!r} us a pop on the longest "
+          "cloud")
+    return longest
+
+
 def check_emd_kernels(torch, dev, stats):
-    """K11 and K12 against their plain versions, owners and prices bitwise:
-    K11 as earth_mover_distance runs it (the hardness hint on the card,
-    the hard ladder when it holds), K12 on K11's own output."""
+    """K11 and K12 against their plain versions, owners, prices and work
+    counters bitwise: K11 as earth_mover_distance runs it (the hardness
+    hint on the card, the hard ladder when it holds), K12 on K11's own
+    output. Bounds from the work the counters report: K11 every benefit
+    once (the warm start) plus a pair evaluation for each object a bidder
+    scans, K12 a column relaxed for each pop."""
     from pytorch_points_tpu_torch.kernels import auction
     from pytorch_points_tpu_torch.ops.emd import _poison_rank_matched
 
@@ -998,55 +1062,104 @@ def check_emd_kernels(torch, dev, stats):
     rng = np.random.default_rng(SEED + 6)
     b, n = SLICE["b"], SLICE["n"]
     pm, qm = (t(m) for m in equal_count_masks(rng, b, n))
-    cases = [  # (label, p, q, endgame pop caps to hold K12 at)
+    same = t(normal(rng, b, n))
+    ladders = ([EMD_ITERS] * EMD_PHASES, list(EMD_HARD))
+    cases = [  # (label, p, q, endgame pop caps to hold K12 at, ladders)
         (f"config 4 B{EMD4['b']} N={EMD4['n']} normal",
-         *config4_clouds(torch, dev), (768,)),
+         *config4_clouds(torch, dev), (768,), ladders),
         (f"B{b} N={n} gaussian mixture", t(gmm(rng, b, n)),
-         t(gmm(rng, b, n)), (384,)),
+         t(gmm(rng, b, n)), (384,), ladders),
         (f"B{b} N={n} tie grid", t(grid64(rng, b, n)), t(grid64(rng, b, n)),
-         ()),
+         (768,), ladders),
         (f"B{b} N=2000 padded", t(normal(rng, b, 2000)),
-         t(normal(rng, b, 2000)), (8,)),
+         t(normal(rng, b, 2000)), (8,), ladders),
         (f"B{b} N={n} 75-100%-valid equal counts",
          _poison_rank_matched(t(normal(rng, b, n)), pm),
-         _poison_rank_matched(t(normal(rng, b, n)), qm), (768,)),
+         _poison_rank_matched(t(normal(rng, b, n)), qm), (768,), ladders),
+        # more clouds than SMs; N' = 256, 1024 and 4096 (K12's block
+        # changes its columns a thread there); pop cap 1
+        ("B140 N=256 normal", t(normal(rng, 140, 256)),
+         t(normal(rng, 140, 256)), (768,), ladders),
+        (f"B{b} N=1024 normal", t(normal(rng, b, 1024)),
+         t(normal(rng, b, 1024)), (1,), ladders),
+        ("B2 N=4096 normal", t(normal(rng, 2, 4096)),
+         t(normal(rng, 2, 4096)), (64,), ladders),
+        # q = p: K12 gets every person already holding its twin (identity
+        # owners, K11's prices), so it has no straggler
+        (f"B{b} N={n} q = p", same, same.clone(), (768,), ladders),
     ]
     eps_k = auction.phase_schedule(EMD_EPS, EMD_PHASES, 6.0)
-    ladders = ([EMD_ITERS] * EMD_PHASES, list(EMD_HARD))
     hints = set()
-    for label, p, q, pops in cases:
+    for label, p, q, pops, lad in cases:
         hint = auction._hardness_hint(p, q)
         hints.add(bool(hint))
         n_pad = auction._round_up(p.shape[1], 256)
         pp, qp = auction.pad_twins(p, q, n_pad)
+        bb = pp.shape[0]
 
-        def k11(impl, pp=pp, qp=qp, hint=hint):
+        def k11(impl, pp=pp, qp=qp, hint=hint, lad=lad, bb=bb):
             run = auction.auction_cuda if impl == "cuda" else (
                 auction.auction_torch)
-            return run(pp, qp, eps_k, ladders, hint, 256, True)
+            counts = torch.zeros((bb, 2, EMD_PHASES), dtype=torch.int32,
+                                 device=dev)
+            return (*run(pp, qp, eps_k, lad, hint, 256, True, counts),
+                    counts)
+
+        def k11_ops(got, bb=bb, n_pad=n_pad):
+            # every benefit once (warm start), then each bidder scan
+            return DIST_FLOPS * n_pad * (bb * n_pad + got[2][:, 0].sum().item())
 
         tag = f"{label}, hint {bool(hint)}"
-        # the least any exact assignment needs: every benefit once
-        owner, price = hold_against_plain(torch, Case(
-            "auction", tag, k11, [pp, qp],
-            DIST_FLOPS * pp.shape[0] * n_pad * n_pad), stats)
+        owner, price, c11 = hold_against_plain(torch, Case(
+            "auction", tag, k11, [pp, qp], k11_ops), stats)
+        k11_ms = stats["auction"]["last_ms"]
         left = (owner < 0).sum(1).float()
         print(f"            stragglers after K11: mean {left.mean().item()!r}"
               f" max {left.max().item()!r} per cloud")
+        if label.endswith("q = p"):
+            owner = torch.arange(n_pad, dtype=torch.int32,
+                                 device=dev).expand(bb, n_pad).contiguous()
         cap = auction.MAX_ROUNDS * min(auction.S_MAX, n_pad)
+        c12 = None
+        k12_ms = 0.0
         for pop in pops:
-            def k12(impl, owner=owner, price=price, pp=pp, qp=qp, pop=pop):
+            def k12(impl, owner=owner, price=price, pp=pp, qp=qp, pop=pop,
+                    bb=bb):
                 run = auction.augment_cuda if impl == "cuda" else (
                     auction.augment_torch)
-                return run(owner, price, pp, qp, EMD_EPS, pop, cap)
+                counts = torch.zeros((bb, 2), dtype=torch.int32, device=dev)
+                return (*run(owner, price, pp, qp, EMD_EPS, pop, cap, counts),
+                        counts)
 
-            # the least: one full row of benefits per straggler
-            done, _ = hold_against_plain(torch, Case(
-                "augment", f"{label}, pop {pop}", k12, [owner, price, pp, qp],
-                DIST_FLOPS * n_pad * (owner < 0).sum().item()), stats)
+            def k12_ops(got, n_pad=n_pad):  # a column relaxed a pop
+                return DIST_FLOPS * n_pad * got[2][:, 0].sum().item()
+
+            done, done_price, c12 = hold_against_plain(torch, Case(
+                "augment", f"{label}, pop {pop}", k12,
+                [owner, price, pp, qp], k12_ops), stats)
+            k12_ms = stats["augment"]["last_ms"]
             if not (torch.sort(done, 1).values == torch.arange(
                     n_pad, device=dev, dtype=torch.int32)).all():
                 fail(f"augment [{label}]: owners are not a permutation")
+        blocks = auction.auction_cluster_size(bb, n_pad, 256)
+        print(f"            K11 takes {blocks} block(s) a cloud")
+        if blocks > 1 and label.startswith(("config 4", f"B{b} N={n} gauss")):
+            one = auction.auction_cuda(pp, qp, eps_k, lad, hint, 256, True,
+                                       cluster=1)
+            if not (torch.equal(one[0], owner) and torch.equal(one[1], price)):
+                fail(f"auction [{label}]: one block a cloud differs")
+            ms1 = cuda_ms(torch, lambda: auction.auction_cuda(
+                pp, qp, eps_k, lad, hint, 256, True, cluster=1))
+            print(f"            K11 on one block a cloud: equal, {ms1!r} ms "
+                  f"(on {blocks}: {k11_ms!r} ms)")
+        longest = emd_counts(torch, c11, c12, n_pad, k11_ms, k12_ms,
+                             int((owner < 0).sum().item()))
+        if label.endswith("q = p") and int(c12.sum()) != 0:
+            fail(f"augment [{label}]: pops without a straggler")
+        if label.startswith("config 4"):
+            k12_blocks(torch, auction,
+                       (owner, price, pp, qp, EMD_EPS, 768, cap),
+                       (done, done_price), longest)
     if hints != {False, True}:
         fail(f"the EMD cases took only hint {hints}: both ladders must run")
     # K11 past the 8 phases one launch holds: two chained launches
@@ -1058,12 +1171,17 @@ def check_emd_kernels(torch, dev, stats):
     def k11_phases(impl):
         run = auction.auction_cuda if impl == "cuda" else (
             auction.auction_torch)
-        return run(p9, q9, eps9, ladders9, hint9, 256, True)
+        counts = torch.zeros((p9.shape[0], 2, AUCTION_PHASES),
+                             dtype=torch.int32, device=dev)
+        return (*run(p9, q9, eps9, ladders9, hint9, 256, True, counts),
+                counts)
 
+    b9, n9 = p9.shape[:2]
     hold_against_plain(torch, Case(
-        "auction", f"{AUCTION_PHASES} phases, config 4 clouds B8 "
-        f"N={p9.shape[1]}, hint {bool(hint9)}", k11_phases, [p9, q9],
-        DIST_FLOPS * p9.shape[0] * p9.shape[1] ** 2), stats)
+        "auction", f"{AUCTION_PHASES} phases, config 4 clouds B{b9} "
+        f"N={n9}, hint {bool(hint9)}", k11_phases, [p9, q9],
+        lambda got: DIST_FLOPS * n9 * (b9 * n9 + got[2][:, 0].sum().item())),
+        stats)
 
 
 def phase_kernels(torch, dev):
@@ -1822,7 +1940,8 @@ def main() -> int:
     # launches: the sum over the main paths' runs (each printed above)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": sum(counts[name] for counts in paths), **stats[name]}
+         "launches": sum(counts[name] for counts in paths),
+         **{k: v for k, v in stats[name].items() if k != "last_ms"}}
         for name, (src, rep) in KERNELS.items()
     ]
     print(f"chip_smoke ran {time.perf_counter() - START!r} s")

@@ -22,50 +22,87 @@
 //  * scanned columns' prices rise by max(d* - dist, 0); then the path from
 //    the end back to the straggler flips.
 //
-// On the card: one block of 512 threads per cloud, each thread owning the
-// columns tid, tid + 512, ...; the cloud's state (56 bytes a column) in
-// shared memory up to about 4000 points, in a global scratch buffer above.
-// A pop relaxes each thread's own columns and folds their argmin in the
-// same pass, then one block barrier (partials double-buffered) gives every
-// thread the next pop: it is bound by that barrier's latency, one per pop,
-// up to pop_cap pops a straggler. With B blocks only B of the 132 SMs work.
+// What bounds it on the card: a chain of pops, each depending on the one
+// before (config 4: up to ~13,500 on a cloud), so the latency of one pop,
+// not bytes or flops (a pop relaxes N' columns at 8 flops each). A pop is
+// one block barrier and a block-wide argmin after N' / T column relaxes
+// on each thread: at N' = 2048 the barrier and argmin alone take ~350
+// cycles on 512 threads, and the relax about as much again. The design:
+//  * a thread's C = 4 columns (column k of thread t is j = t + k * T, T a
+//    power of two; 8 and 16 columns on 256 and 128 threads for the same
+//    N' are instances for measurement) keep dist and qx, qy, qz, qn in
+//    registers, so a relax reads no shared memory but the popped column's
+//    owner row (a broadcast). Shared memory keeps what is read by index or
+//    once a straggler: owner, the owner's coordinates and psq by column
+//    (so a pop reads them in one step), pred (written only where a relax
+//    improves), price, a copy of qx, qy, qz and the straggler's qn for the
+//    j* lookup, and the straggler list;
+//  * a scanned column's dist is NaN (below), so the relax tests nothing
+//    for it and a thread's min is one fminf a column; only the lanes that
+//    hold their warp's least value (a __reduce_min_sync over
+//    order-preserving float bits, -0 folded into +0) look for its lowest
+//    index;
+//  * one block barrier a pop: lane w of every warp reads warp w's partial
+//    after it and reduces again (the partials double-buffered, so the next
+//    pop's writes need no barrier);
+//  * one block a cloud. A cluster barrier with a distributed-shared-memory
+//    exchange costs ~930-980 cycles a round at 2-4 blocks of 128 threads,
+//    more than a whole pop takes on one block, so a cloud is not split.
+// Past 4096 columns (4 a thread on 1024 threads) a thread's columns stay in
+// the state arrays (C = 0), and past the shared-memory budget the state
+// lives in a global scratch buffer. With B blocks only B of the 132 SMs
+// work.
 #include <limits.h>
 #include <math.h>
 
+#include <cooperative_groups.h>
+#include <type_traits>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr float kInf = 1.0e30f;
 
-struct State {
-  float *px, *py, *pz, *qx, *qy, *qz, *qsq, *qn, *price, *dist;
-  int *owner, *pred, *scan, *list;
-};
-
-__host__ __device__ inline size_t state_bytes(int n) {
-  return (static_cast<size_t>(n) * 14 * 4 + 15) / 16 * 16;
+// The most threads an instance runs on: its registers (C columns of dist,
+// qx, qy, qz, qn) must fit 65,536 / threads.
+__host__ __device__ constexpr int max_threads(int c) {
+  return c <= 4 ? 1024 : (c == 8 ? 512 : 256);
 }
 
-__device__ inline State carve(char* base, int n) {
+
+// Per-cloud state. qrow[j] = (qx, qy, qz, qn) of column j, qn the
+// straggler's; orow[j] = (px, py, pz, psq) of the person owning column j
+// (kept along with owner, so a pop reads its owner row in one step); price,
+// owner, pred, list. With the columns in memory (C = 0) also dist and
+// sdist (a scanned column's dist when it was scanned).
+struct State {
+  float4 *qrow, *orow;
+  float *price, *dist, *sdist;
+  int *owner, *pred, *list;
+};
+
+__host__ __device__ inline size_t state_bytes(int n, bool columns_in_memory) {
+  return static_cast<size_t>(n) * (columns_in_memory ? 56 : 48);
+}
+
+__device__ inline State carve(char* base, int n, bool columns_in_memory) {
   State s;
-  float* f = reinterpret_cast<float*>(base);
-  s.px = f;
-  s.py = f + n;
-  s.pz = f + 2 * n;
-  s.qx = f + 3 * n;
-  s.qy = f + 4 * n;
-  s.qz = f + 5 * n;
-  s.qsq = f + 6 * n;
-  s.qn = f + 7 * n;
-  s.price = f + 8 * n;
-  s.dist = f + 9 * n;
-  s.owner = reinterpret_cast<int*>(f + 10 * n);
+  s.qrow = reinterpret_cast<float4*>(base);
+  s.orow = s.qrow + n;
+  s.price = reinterpret_cast<float*>(s.orow + n);
+  s.owner = reinterpret_cast<int*>(s.price + n);
   s.pred = s.owner + n;
-  s.scan = s.pred + n;
-  s.list = s.scan + n;
+  s.list = s.pred + n;
+  s.dist = s.sdist = nullptr;
+  if (columns_in_memory) {
+    s.dist = reinterpret_cast<float*>(s.list + n);
+    s.sdist = s.dist + n;
+  }
   return s;
 }
 
@@ -74,81 +111,168 @@ __device__ __forceinline__ float sumsq3(float x, float y, float z) {
                    __fmul_rn(z, z));
 }
 
-// Net cost c[i][j] + price[j] in the reference's dot form.
-__device__ __forceinline__ float net_cost(const State& s, float pix,
-                                          float piy, float piz, float psq,
-                                          int j) {
+// Net cost c[i][j] + price[j] in the reference's dot form: o = (px, py,
+// pz, psq) of person i, q = (qx, qy, qz, qn) of column j.
+__device__ __forceinline__ float net_cost(float4 o, float qx, float qy,
+                                          float qz, float qn) {
   const float dot = __fadd_rn(
-      __fadd_rn(__fmul_rn(pix, s.qx[j]), __fmul_rn(piy, s.qy[j])),
-      __fmul_rn(piz, s.qz[j]));
-  return __fadd_rn(__fsub_rn(s.qn[j], __fmul_rn(2.0f, dot)), psq);
+      __fadd_rn(__fmul_rn(o.x, qx), __fmul_rn(o.y, qy)), __fmul_rn(o.z, qz));
+  return __fadd_rn(__fsub_rn(qn, __fmul_rn(2.0f, dot)), o.w);
 }
 
-__device__ __forceinline__ void argmin_merge(float& v, int& j, float ov,
-                                             int oj) {
-  if (ov < v || (ov == v && oj < j)) {
-    v = ov;
-    j = oj;
-  }
-}
+// A scanned column's dist reads NaN during its straggler's search: a
+// relax (cand < NaN) never touches it and a min (fminf) never takes it, so
+// the pops test nothing for it; its dist at the scan stays in sdist for
+// the price update. A free column ends a search, so it is never scanned,
+// and one with a finite dist always exists: no pop takes the 1e30 that
+// the reference gives a scanned column.
 
-// Block-wide (min value, lowest index); every thread gets the result. The
-// partials alternate between two buffers, so one barrier suffices: a
-// buffer is written again only after the next call's barrier.
-__device__ __forceinline__ void block_argmin(float& v, int& j,
-                                             float (*rv)[kWarps],
-                                             int (*rj)[kWarps], int& buf) {
+// A thread's columns j = tid + k * T, k < C, in registers. Loops over k are
+// unrolled, so every array index is a constant. Columns past n hold NaN
+// from the start.
+template <int C>
+struct RegCols {
+  float dist_[C], sdist_[C], qx_[C], qy_[C], qz_[C], qn_[C];
+  __device__ __forceinline__ RegCols(const State&, int tid, int nt, int n) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const int oj = __shfl_xor_sync(0xffffffffu, j, off);
-    argmin_merge(v, j, ov, oj);
+    for (int k = 0; k < C; ++k) dist_[k] = tid + k * nt < n ? 0.f : NAN;
   }
-  if ((threadIdx.x & 31) == 0) {
-    rv[buf][threadIdx.x >> 5] = v;
-    rj[buf][threadIdx.x >> 5] = j;
+  __device__ __forceinline__ float& dist(int k) { return dist_[k]; }
+  __device__ __forceinline__ float& sdist(int k) { return sdist_[k]; }
+  __device__ __forceinline__ float& qx(int k) { return qx_[k]; }
+  __device__ __forceinline__ float& qy(int k) { return qy_[k]; }
+  __device__ __forceinline__ float& qz(int k) { return qz_[k]; }
+  __device__ __forceinline__ float& qn(int k) { return qn_[k]; }
+  __device__ __forceinline__ void scan(int k) {
+#pragma unroll
+    for (int kk = 0; kk < C; ++kk)
+      if (kk == k) {
+        sdist_[kk] = dist_[kk];
+        dist_[kk] = NAN;
+      }
   }
+};
+
+// The same columns kept in the state arrays (clouds past the register
+// instances), ceil((n - tid) / T) of them a thread.
+struct MemCols {
+  const State* s;
+  int tid, threads;
+  __device__ __forceinline__ MemCols(const State& st, int t, int nt, int)
+      : s(&st), tid(t), threads(nt) {}
+  __device__ __forceinline__ int at(int k) const { return tid + k * threads; }
+  __device__ __forceinline__ float& dist(int k) { return s->dist[at(k)]; }
+  __device__ __forceinline__ float& sdist(int k) { return s->sdist[at(k)]; }
+  __device__ __forceinline__ float& qx(int k) { return s->qrow[at(k)].x; }
+  __device__ __forceinline__ float& qy(int k) { return s->qrow[at(k)].y; }
+  __device__ __forceinline__ float& qz(int k) { return s->qrow[at(k)].z; }
+  __device__ __forceinline__ float& qn(int k) { return s->qrow[at(k)].w; }
+  __device__ __forceinline__ void scan(int k) {
+    s->sdist[at(k)] = s->dist[at(k)];
+    s->dist[at(k)] = NAN;
+  }
+};
+
+// Float bits whose unsigned order is the float order, -0 folded into +0
+// (argmin calls them equal and takes the lower index).
+__device__ __forceinline__ unsigned ordered(float f) {
+  const unsigned u = __float_as_uint(__fadd_rn(f, 0.0f));
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float unordered(unsigned u) {
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+// (key, index) minimum over the warp; every lane gets it.
+__device__ __forceinline__ void warp_argmin(unsigned& key, unsigned& idx) {
+  const unsigned k = __reduce_min_sync(0xffffffffu, key);
+  idx = __reduce_min_sync(0xffffffffu, key == k ? idx : UINT_MAX);
+  key = k;
+}
+
+// Block-wide (min value, lowest index) from each warp's (key, idx); every
+// thread gets it. One barrier: the partials alternate between two buffers,
+// so a buffer is written again only after the next call's barrier.
+__device__ __forceinline__ void block_finish(unsigned key, unsigned idx,
+                                             float& d, int& jj,
+                                             uint2 (*part)[kMaxWarps],
+                                             int& buf, int warps) {
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) part[buf][threadIdx.x >> 5] = make_uint2(key, idx);
   __syncthreads();
-  v = rv[buf][0];
-  j = rj[buf][0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) argmin_merge(v, j, rv[buf][w], rj[buf][w]);
+  const uint2 w = lane < warps ? part[buf][lane]
+                               : make_uint2(UINT_MAX, UINT_MAX);
+  key = w.x;
+  idx = w.y;
+  warp_argmin(key, idx);
+  d = unordered(key);
+  jj = static_cast<int>(idx);
   buf ^= 1;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The same from each thread's (v, j).
+__device__ __forceinline__ void block_argmin(float v, int j, float& d,
+                                             int& jj, uint2 (*part)[kMaxWarps],
+                                             int& buf, int warps) {
+  unsigned key = ordered(v), idx = static_cast<unsigned>(j);
+  warp_argmin(key, idx);
+  block_finish(key, idx, d, jj, part, buf, warps);
+}
+
+// C > 0: RegCols<C>, the state in shared memory; C == 0: MemCols, the
+// state in shared memory or (scratch non-null) in the scratch buffer. The
+// register instances name shared memory itself, so their state accesses
+// compile to shared-memory instructions. T = blockDim.x = 1 << log_t.
+template <int C>
+__global__ void __launch_bounds__(max_threads(C))
     augment_kernel(const float* __restrict__ p, const float* __restrict__ q,
                    const int* __restrict__ owner_in,
-                   const float* __restrict__ price_in, int n, float eps,
-                   int pop_cap, int cap, int* __restrict__ out_owner,
-                   float* __restrict__ out_price, char* __restrict__ scratch,
-                   size_t scratch_stride) {
+                   const float* __restrict__ price_in, int n, int log_t,
+                   float eps, int pop_cap, int cap, int* __restrict__ out_owner,
+                   float* __restrict__ out_price, int* __restrict__ counts,
+                   char* __restrict__ scratch, size_t scratch_stride) {
+  using Cols = typename std::conditional<(C > 0), RegCols<(C > 0 ? C : 1)>,
+                                         MemCols>::type;
   extern __shared__ __align__(16) char smem[];
-  __shared__ float red_v[2][kWarps];
-  __shared__ int red_j[2][kWarps];
+  __shared__ uint2 part[2][kMaxWarps];
   __shared__ int s_count;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
+  const int nt = 1 << log_t;
+  const int warps = nt >> 5;
   const int lane = tid & 31;
-  const State s = carve(scratch ? scratch + b * scratch_stride : smem, n);
+  const int cols = C > 0 ? C : (n - tid + nt - 1) >> log_t;
+  char* base = smem;
+  if constexpr (C == 0)
+    if (scratch != nullptr) base = scratch + b * scratch_stride;
+  const State s = carve(base, n, C == 0);
+  Cols c(s, tid, nt, n);
   const size_t row0 = static_cast<size_t>(b) * n;
   const float* pb = p + row0 * 3;
   const float* qb = q + row0 * 3;
 
-  for (int j = tid; j < n; j += kThreads) {
-    s.px[j] = pb[3 * j];
-    s.py[j] = pb[3 * j + 1];
-    s.pz[j] = pb[3 * j + 2];
-    s.qx[j] = qb[3 * j];
-    s.qy[j] = qb[3 * j + 1];
-    s.qz[j] = qb[3 * j + 2];
-    s.qsq[j] = sumsq3(s.qx[j], s.qy[j], s.qz[j]);
-    s.owner[j] = owner_in[row0 + j];
+  for (int j = tid; j < n; j += nt) {
+    const int own = owner_in[row0 + j];
+    s.owner[j] = own;
     s.price[j] = price_in[row0 + j];
     s.pred[j] = 0;  // here: "person j holds an object"
+    if (own >= 0) {
+      const float x = pb[3 * own], y = pb[3 * own + 1], z = pb[3 * own + 2];
+      s.orow[j] = make_float4(x, y, z, sumsq3(x, y, z));
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < cols; ++k) {
+    const int j = tid + k * nt;
+    if (j < n) {
+      c.qx(k) = qb[3 * j];
+      c.qy(k) = qb[3 * j + 1];
+      c.qz(k) = qb[3 * j + 2];
+    }
   }
   __syncthreads();
-  for (int j = tid; j < n; j += kThreads)
+  for (int j = tid; j < n; j += nt)
     if (s.owner[j] >= 0) s.pred[s.owner[j]] = 1;
   __syncthreads();
   if (tid < 32) {  // stragglers, in ascending person index
@@ -164,112 +288,321 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   const int count = s_count;
-  int buf = 0;
+  int buf = 0, pops = 0, capped_count = 0;
 
   for (int st = 0; st < count; ++st) {
     const int i0 = s.list[st];
-    {
-      const float pix = s.px[i0], piy = s.py[i0], piz = s.pz[i0];
-      const float psq = sumsq3(pix, piy, piz);
-      for (int j = tid; j < n; j += kThreads) {
-        s.qn[j] = __fadd_rn(s.qsq[j], s.price[j]);
-        s.dist[j] = net_cost(s, pix, piy, piz, psq, j);
+    const float x0 = pb[3 * i0], y0 = pb[3 * i0 + 1], z0 = pb[3 * i0 + 2];
+    const float4 o0 = make_float4(x0, y0, z0, sumsq3(x0, y0, z0));
+    float d, best = INFINITY;
+    int jj, bj = INT_MAX;
+#pragma unroll
+    for (int k = 0; k < cols; ++k) {
+      const int j = tid + k * nt;
+      if (j < n) {
+        const float qx = c.qx(k), qy = c.qy(k), qz = c.qz(k);
+        const float qn = __fadd_rn(sumsq3(qx, qy, qz), s.price[j]);
+        c.qn(k) = qn;
+        if (C > 0) s.qrow[j] = make_float4(qx, qy, qz, qn);
+        const float dj = net_cost(o0, qx, qy, qz, qn);
+        c.dist(k) = dj;
         s.pred[j] = -1;
-        s.scan[j] = 0;
+        if (dj < best) {
+          best = dj;
+          bj = j;
+        }
       }
     }
-    float d = INFINITY;
-    int jj = INT_MAX;
-    for (int j = tid; j < n; j += kThreads) argmin_merge(d, jj, s.dist[j], j);
-    block_argmin(d, jj, red_v, red_j, buf);
+    block_argmin(best, bj, d, jj, part, buf, warps);
 
     int jstar = 0;
     float dstar = 0.f;
-    bool capped = pop_cap <= 0;
-    for (int pops = 1; !capped; ++pops) {
+    bool capped = false;
+    for (int taken = 0;;) {
+      if (taken >= pop_cap) {
+        capped = true;
+        break;
+      }
+      ++taken;
+      ++pops;
       jstar = min(jj, n - 1);
       dstar = d;
       const int own = s.owner[jstar];
+      const float4 o = s.orow[jstar];
+      const float4 qr = s.qrow[jstar];
       if (own < 0) break;  // a free column: the path ends here
-      if (jstar % kThreads == tid) s.scan[jstar] = 1;
-      const float pix = s.px[own], piy = s.py[own], piz = s.pz[own];
-      const float psq = sumsq3(pix, piy, piz);
+      if ((jstar & (nt - 1)) == tid) c.scan(jstar >> log_t);
       const float base =
-          __fadd_rn(__fsub_rn(dstar, net_cost(s, pix, piy, piz, psq, jstar)),
+          __fadd_rn(__fsub_rn(dstar, net_cost(o, qr.x, qr.y, qr.z, qr.w)),
                     eps);
-      d = INFINITY;
-      jj = INT_MAX;
-      for (int j = tid; j < n; j += kThreads) {
-        if (!s.scan[j]) {
-          const float cand = __fadd_rn(base, net_cost(s, pix, piy, piz, psq, j));
-          if (cand < s.dist[j]) {
-            s.dist[j] = cand;
-            s.pred[j] = jstar;
-          }
+      best = INFINITY;
+#pragma unroll
+      for (int k = 0; k < cols; ++k) {
+        const float cand =
+            __fadd_rn(base, net_cost(o, c.qx(k), c.qy(k), c.qz(k), c.qn(k)));
+        if (cand < c.dist(k)) {
+          c.dist(k) = cand;
+          s.pred[tid + k * nt] = jstar;
         }
-        argmin_merge(d, jj, s.scan[j] ? kInf : s.dist[j], j);
+        best = fminf(best, c.dist(k));
       }
-      block_argmin(d, jj, red_v, red_j, buf);
-      capped = pops >= pop_cap;
+      // the warp's least value first; only the lanes holding it look for
+      // its lowest index among their columns
+      const unsigned key = __reduce_min_sync(0xffffffffu, ordered(best));
+      unsigned idx = UINT_MAX;
+      if (ordered(best) == key) {
+#pragma unroll
+        for (int k = 0; k < cols; ++k)
+          if (idx == UINT_MAX && c.dist(k) == best) idx = tid + k * nt;
+      }
+      block_finish(key, __reduce_min_sync(0xffffffffu, idx), d, jj, part,
+                   buf, warps);
     }
     if (capped) {  // the nearest free column reached so far
-      d = INFINITY;
-      jj = INT_MAX;
-      for (int j = tid; j < n; j += kThreads)
-        argmin_merge(d, jj, s.owner[j] < 0 ? s.dist[j] : kInf, j);
-      block_argmin(d, jj, red_v, red_j, buf);
+      ++capped_count;
+      best = INFINITY;
+      bj = INT_MAX;
+#pragma unroll
+      for (int k = 0; k < cols; ++k) {
+        const int j = tid + k * nt;
+        if (j < n) {
+          const float v = s.owner[j] < 0 ? c.dist(k) : kInf;
+          if (v < best) {
+            best = v;
+            bj = j;
+          }
+        }
+      }
+      block_argmin(best, bj, d, jj, part, buf, warps);
       jstar = min(jj, n - 1);
       dstar = d;
     }
-    for (int j = tid; j < n; j += kThreads) {
-      if (s.scan[j]) {
-        const float x = __fsub_rn(dstar, s.dist[j]);
+#pragma unroll
+    for (int k = 0; k < cols; ++k) {
+      const int j = tid + k * nt;
+      if (j < n && isnan(c.dist(k))) {  // scanned
+        const float x = __fsub_rn(dstar, c.sdist(k));
         s.price[j] = __fadd_rn(s.price[j], x > 0.f ? x : 0.f);
       }
     }
+    __syncthreads();  // every pred written
     if (tid == 0) {  // flip the path back to the straggler
       for (int jc = jstar;;) {
         const int pj = s.pred[jc];
-        s.owner[jc] = pj < 0 ? i0 : s.owner[pj];
-        if (pj < 0) break;
+        if (pj < 0) {
+          s.owner[jc] = i0;
+          s.orow[jc] = o0;
+          break;
+        }
+        s.owner[jc] = s.owner[pj];
+        s.orow[jc] = s.orow[pj];
         jc = pj;
       }
     }
-    __syncthreads();
+    __syncthreads();  // the flip read pred, which the next straggler resets
   }
-  for (int j = tid; j < n; j += kThreads) {
+  for (int j = tid; j < n; j += nt) {
     out_owner[row0 + j] = s.owner[j];
     out_price[row0 + j] = s.price[j];
   }
+  if (counts != nullptr && tid == 0) {
+    counts[2 * b] = pops;
+    counts[2 * b + 1] = capped_count;
+  }
+}
+
+// The least time of one pop: a block argmin (one barrier) whose input
+// depends on the one before, `iters` times; writes the clock64 cycles and
+// the %globaltimer nanoseconds of the loop, as thread 0 read them.
+__global__ void __launch_bounds__(kMaxThreads)
+    pop_floor_kernel(int iters, long long* out) {
+  __shared__ uint2 part[2][kMaxWarps];
+  const int warps = blockDim.x >> 5;
+  int buf = 0, jj = 0;
+  float d = 0.f;
+  __syncthreads();
+  const long long c0 = clock64();
+  unsigned long long t0;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  for (int it = 0; it < iters; ++it) {
+    const unsigned h = (threadIdx.x * 2654435761u) ^ static_cast<unsigned>(jj);
+    block_argmin(static_cast<float>(h & 0xffffu), threadIdx.x, d, jj, part,
+                 buf, warps);
+  }
+  const long long c1 = clock64();
+  unsigned long long t1;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t1));
+  if (threadIdx.x == 0) {
+    out[0] = c1 - c0;
+    out[1] = static_cast<long long>(t1 - t0);
+    out[2] = jj + static_cast<long long>(d);  // keeps the loop live
+  }
+}
+
+// The same round for a cloud spread over a cluster of blocks: each warp's
+// partial goes to every block through distributed shared memory, then one
+// cluster barrier, then every warp reduces the cluster's partials. What a
+// pop would pay at least if a cloud's columns were split across SMs.
+__global__ void __launch_bounds__(kMaxThreads)
+    cluster_floor_kernel(int iters, long long* out) {
+  __shared__ uint2 part[2][kMaxWarps];
+  cg::cluster_group cl = cg::this_cluster();
+  const int cs = static_cast<int>(cl.num_blocks());
+  const int rank = static_cast<int>(cl.block_rank());
+  const int warps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int buf = 0;
+  unsigned jj = 0;
+  cl.sync();
+  const long long c0 = clock64();
+  unsigned long long t0;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  for (int it = 0; it < iters; ++it) {
+    unsigned key = ((threadIdx.x + rank * blockDim.x) * 2654435761u ^ jj) &
+                   0xffffu;
+    unsigned idx = threadIdx.x + rank * blockDim.x;
+    warp_argmin(key, idx);
+    if (lane < cs)
+      *cl.map_shared_rank(&part[buf][rank * warps + (threadIdx.x >> 5)],
+                          lane) = make_uint2(key, idx);
+    cl.sync();
+    const uint2 w = lane < cs * warps ? part[buf][lane]
+                                      : make_uint2(UINT_MAX, UINT_MAX);
+    key = w.x;
+    idx = w.y;
+    warp_argmin(key, idx);
+    jj = key + idx;
+    buf ^= 1;
+  }
+  const long long c1 = clock64();
+  unsigned long long t1;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t1));
+  if (threadIdx.x == 0 && rank == 0) {
+    out[0] = c1 - c0;
+    out[1] = static_cast<long long>(t1 - t0);
+    out[2] = jj;  // keeps the loop live
+  }
+  cl.sync();  // no block leaves while another may still store to it
+}
+
+// Columns a thread keeps in registers for n columns on `threads` threads:
+// the least of 4, 8, 16 that covers them within its instance's thread
+// limit, or 0 (the state arrays).
+int columns_per_thread(int n, int threads) {
+  for (int c = 4; c <= 16; c *= 2)
+    if (threads <= max_threads(c) &&
+        static_cast<long long>(c) * threads >= n)
+      return c;
+  return 0;
+}
+
+bool power_of_two_threads(int t) {
+  return t >= 32 && t <= kMaxThreads && (t & (t - 1)) == 0;
+}
+
+// Default block: 4 columns a thread, on a power of two of threads up to
+// 1024 (N' <= 4096); past that 1024 threads over the state arrays.
+int default_threads(int n) {
+  const int want = (n + 3) / 4;
+  int t = 32;
+  while (t < want && t < kMaxThreads) t *= 2;
+  return t;
+}
+
+template <int C>
+cudaError_t launch(int b, int threads, size_t smem, cudaStream_t stream,
+                   const float* p, const float* q, const int* owner_in,
+                   const float* price_in, int n, float eps, int pop_cap,
+                   int cap, int* out_owner, float* out_price, int* counts,
+                   char* scratch, int scratch_stride) {
+  if (smem > 32 * 1024) {  // past the default 48 KB with the static arrays
+    const cudaError_t err = cudaFuncSetAttribute(
+        augment_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  int log_t = 0;
+  while ((1 << log_t) < threads) ++log_t;
+  augment_kernel<C><<<b, threads, smem, stream>>>(
+      p, q, owner_in, price_in, n, log_t, eps, pop_cap, cap, out_owner,
+      out_price, counts, scratch, static_cast<size_t>(scratch_stride));
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Bytes of one cloud's state; the wrapper passes a scratch buffer of
-// b * this many bytes when it is above its shared-memory budget.
-extern "C" int ppt_augment_state_bytes(int n) {
-  return static_cast<int>(state_bytes(n));
+// Block size for n columns: `threads` if it is a power of two in [32,
+// 1024], else the default.
+extern "C" int ppt_augment_threads(int n, int threads) {
+  return power_of_two_threads(threads) ? threads : default_threads(n);
+}
+
+// Bytes of one cloud's state on `threads` threads (see ppt_augment_threads);
+// the wrapper passes a scratch buffer of b * this many bytes when it is
+// above its shared-memory budget.
+extern "C" int ppt_augment_state_bytes(int n, int threads) {
+  const int t = ppt_augment_threads(n, threads);
+  return static_cast<int>(state_bytes(n, columns_per_thread(n, t) == 0));
 }
 
 // p, q: float [B, N, 3] (padded); owner_in: int [B, N] object -> person
 // (-1 = free); price_in: float [B, N]. out_owner, out_price: the same after
-// the endgame. scratch: null (state in shared memory) or b *
-// scratch_stride bytes.
+// the endgame. counts: null or int [B, 2] (pops, capped stragglers a
+// cloud). threads: the block size (0: the default). scratch: null (state
+// in shared memory) or b * scratch_stride bytes.
 extern "C" int ppt_augment(const float* p, const float* q,
                            const int* owner_in, const float* price_in, int b,
                            int n, float eps, int pop_cap, int cap,
-                           int* out_owner, float* out_price, char* scratch,
-                           int scratch_stride, cudaStream_t stream) {
+                           int* out_owner, float* out_price, int* counts,
+                           int threads, char* scratch, int scratch_stride,
+                           cudaStream_t stream) {
   if (b == 0 || n == 0) return cudaSuccess;
-  const size_t smem = scratch ? 0 : state_bytes(n);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        augment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+  const int t = ppt_augment_threads(n, threads);
+  const int c = scratch ? 0 : columns_per_thread(n, t);
+  const size_t smem = scratch ? 0 : state_bytes(n, c == 0);
+  switch (c) {
+    case 4:
+      return launch<4>(b, t, smem, stream, p, q, owner_in, price_in, n, eps,
+                       pop_cap, cap, out_owner, out_price, counts, scratch,
+                       scratch_stride);
+    case 8:
+      return launch<8>(b, t, smem, stream, p, q, owner_in, price_in, n, eps,
+                       pop_cap, cap, out_owner, out_price, counts, scratch,
+                       scratch_stride);
+    case 16:
+      return launch<16>(b, t, smem, stream, p, q, owner_in, price_in, n, eps,
+                        pop_cap, cap, out_owner, out_price, counts, scratch,
+                        scratch_stride);
+    default:
+      return launch<0>(b, t, smem, stream, p, q, owner_in, price_in, n, eps,
+                       pop_cap, cap, out_owner, out_price, counts, scratch,
+                       scratch_stride);
   }
-  augment_kernel<<<b, kThreads, smem, stream>>>(
-      p, q, owner_in, price_in, n, eps, pop_cap, cap, out_owner, out_price,
-      scratch, static_cast<size_t>(scratch_stride));
-  return cudaGetLastError();
+}
+
+// Times the floor of one pop at `threads` threads a block, on one block
+// (cluster 1) or across a cluster of blocks (cluster x threads / 32 <= 32
+// warps): out (device, 3 int64): clock64 cycles and globaltimer ns over
+// `iters` rounds.
+extern "C" int ppt_augment_pop_floor(int threads, int cluster, int iters,
+                                     long long* out, cudaStream_t stream) {
+  if (!power_of_two_threads(threads) || cluster < 1 ||
+      cluster * threads > kMaxThreads)
+    return cudaErrorInvalidValue;
+  if (cluster == 1) {
+    pop_floor_kernel<<<1, threads, 0, stream>>>(iters, out);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, cluster_floor_kernel, iters, out);
 }

@@ -5,7 +5,16 @@ CUDA kernels: ``csrc/auction.cu``, which replaces the TPU kernel
 ``pytorch_points_tpu/kernels/auction.py::_auction_kernel`` (called by
 ``_auction_owner``), and ``csrc/augment.cu``, which replaces
 ``::_augment_kernel`` (called by ``_residual_rounds``). The header notes
-there say what bounds each on the card.
+there say what bounds each on the card: K11 the auction's own work (bidder
+scans x N' pair evaluations) and its chunks' latency, on a cluster of up
+to 8 SMs a cloud; K12 the latency of its chain of Dijkstra pops, one block
+barrier each, on one SM a cloud.
+
+Both kernels and both plain versions can report the work they did, through
+an optional ``counts`` tensor: K11 its bidder scans and sweeps a phase, K12
+its pops and capped stragglers a cloud. The kernel's counts equal the plain
+version's, as its owners and prices do; a bound on each kernel's time
+follows from them (PERF.md).
 
 Semantics are the Pallas kernels', to the bit where both round alike:
 
@@ -41,8 +50,11 @@ from pytorch_points_tpu_torch.kernels import _build, dispatch
 
 _ppt_auction = _build.entry("ppt_auction")
 _ppt_auction_state_bytes = _build.entry("ppt_auction_state_bytes")
+_ppt_auction_cluster = _build.entry("ppt_auction_cluster")
 _ppt_augment = _build.entry("ppt_augment")
 _ppt_augment_state_bytes = _build.entry("ppt_augment_state_bytes")
+_ppt_augment_threads = _build.entry("ppt_augment_threads")
+_ppt_augment_pop_floor = _build.entry("ppt_augment_pop_floor")
 
 _IDX_BIG = 2**30
 _NEG = -1.0e30
@@ -92,7 +104,8 @@ def phase_schedule(eps: float, phases: int, scale: float) -> list[float]:
 
 def auction_torch(p: torch.Tensor, q: torch.Tensor, eps_k: list[float],
                   ladders: tuple[list[int], list[int]],
-                  hint: torch.Tensor | None, ti: int, warm_start: bool):
+                  hint: torch.Tensor | None, ti: int, warm_start: bool,
+                  counts: torch.Tensor | None = None):
     """Plain version of K11 on padded clouds [B,N',3]: (owner [B,N'] int32,
     object -> person, -1 = unowned; price [B,N'] f32).
 
@@ -100,6 +113,11 @@ def auction_torch(p: torch.Tensor, q: torch.Tensor, eps_k: list[float],
     objects are all owned places no more bids, so its extra sweeps change
     nothing. ``ladders`` holds the per-phase iteration budgets, the second
     taken when ``hint`` (a bool tensor) is true.
+
+    ``counts`` (int32 [B, 2, phases], or None) receives the work each cloud
+    did: [:, 0, ph] its bidder scans in phase ph (a person who bids scans
+    every object once), [:, 1, ph] its sweeps there (a cloud stops sweeping
+    once it owns every object).
     """
     b, n, _ = p.shape
     dev = p.device
@@ -118,10 +136,14 @@ def auction_torch(p: torch.Tensor, q: torch.Tensor, eps_k: list[float],
         for c0 in chunks:
             price = torch.maximum(price, benefit(c0).amax(1))
     ladder = ladders[1 if hint is not None and bool(hint) else 0]
+    if counts is not None:
+        counts.zero_()
     for ph, eps in enumerate(eps_k):
         eps_t = torch.tensor(eps, dtype=f32, device=dev)
         owner.fill_(-1)
         for _ in range(ladder[ph]):
+            if counts is not None:
+                counts[:, 1, ph] += (owner < 0).any(1).int()
             for c0 in chunks:
                 ben = benefit(c0)
                 net = ben - price[:, None, :]
@@ -135,6 +157,8 @@ def auction_torch(p: torch.Tensor, q: torch.Tensor, eps_k: list[float],
                 assigned = (owner[:, None, :] == pidx[:, None]).any(
                     2, keepdim=True)
                 bid = torch.where(assigned, neg, bid)
+                if counts is not None:
+                    counts[:, 0, ph] += (~assigned).sum((1, 2)).int()
                 contrib = torch.where(sel, bid, neg)  # [B,ti,N]
                 cbest = contrib.amax(1)
                 cwin = torch.where(contrib == cbest[:, None], pidx[:, None],
@@ -156,14 +180,20 @@ def _budget_args(eps_k, ladders):
 
 def auction_cuda(p: torch.Tensor, q: torch.Tensor, eps_k: list[float],
                  ladders: tuple[list[int], list[int]],
-                 hint: torch.Tensor | None, ti: int, warm_start: bool):
-    """Launch K11: same contract as :func:`auction_torch`. ``hint`` stays on
-    the card; the kernel reads it and picks the ladder."""
+                 hint: torch.Tensor | None, ti: int, warm_start: bool,
+                 counts: torch.Tensor | None = None, cluster: int = 0):
+    """Launch K11: same contract as :func:`auction_torch`, ``counts`` an
+    int32 [B, 2, phases] tensor on the card. ``hint`` stays on the card;
+    the kernel reads it and picks the ladder. ``cluster``: blocks a cloud
+    (0: the most, up to 8, that fit on the card at once; 1: one block)."""
     b, n, _ = p.shape
     _build.require(p, "auction p", torch.float32, (b, n, 3))
     _build.require(q, "auction q", torch.float32, (b, n, 3))
     if hint is not None:
         _build.require(hint, "auction hint", torch.bool, ())
+    if counts is not None:
+        _build.require(counts, "auction counts", torch.int32,
+                       (b, 2, len(eps_k)))
     if not eps_k:
         raise ValueError("auction: needs at least one phase")
     if not 1 <= ti <= n:
@@ -178,7 +208,8 @@ def auction_cuda(p: torch.Tensor, q: torch.Tensor, eps_k: list[float],
     err = _ppt_auction(
         p.data_ptr(), q.data_ptr(), b, n, ti, phases, eps_arr, bud_arr,
         _build.ptr(hint), int(warm_start), owner.data_ptr(), price.data_ptr(),
-        _build.ptr(scratch), state if scratch is not None else 0,
+        _build.ptr(counts), cluster, _build.ptr(scratch),
+        state if scratch is not None else 0,
         _build.stream(p),
     )
     _build.check(err, "ppt_auction")
@@ -189,14 +220,27 @@ def auction_cuda(p: torch.Tensor, q: torch.Tensor, eps_k: list[float],
 auction_cuda.launches = 0
 
 
+def auction_cluster_size(b: int, n: int, ti: int) -> int:
+    """Blocks a cloud takes in K11 for ``b`` clouds of ``n`` points (a
+    cluster of up to 8, the most whose clusters fit on the card at once;
+    1: one block a cloud)."""
+    return _ppt_auction_cluster(b, n, ti)
+
+
 def augment_torch(owner: torch.Tensor, price: torch.Tensor, p: torch.Tensor,
-                  q: torch.Tensor, eps: float, pop_cap: int, cap: int):
+                  q: torch.Tensor, eps: float, pop_cap: int, cap: int,
+                  counts: torch.Tensor | None = None):
     """Plain version of K12 on padded clouds: (owner, price) after the JV
     endgame. Works on [B,N'] planes with every cloud in lock-step, as the
     reference's kernel does: straggler slot s of every cloud at once, a
     cloud with fewer stragglers masked out. A cloud that stopped popping is
     frozen, so extra pop steps change nothing; the loop checks for that
-    every 16 pops."""
+    every 16 pops.
+
+    ``counts`` (int32 [B, 2], or None) receives each cloud's pops (the
+    columns its Dijkstra searches took off the heap, the free column that
+    ends a search included) and its capped stragglers (those whose search
+    reached ``pop_cap`` pops without a free column)."""
     b, n = owner.shape
     dev = owner.device
     f32 = torch.float32
@@ -221,6 +265,8 @@ def augment_torch(owner: torch.Tensor, price: torch.Tensor, p: torch.Tensor,
         dot = (pix * qx + piy * qy) + piz * qz
         return (qn - 2.0 * dot) + psq
 
+    if counts is not None:
+        counts.zero_()
     for s in range(int(count.max()) if b else 0):
         valid = s < count  # [B,1]
         i0 = ids[:, s : s + 1].clamp_max(n - 1)
@@ -234,6 +280,8 @@ def augment_torch(owner: torch.Tensor, price: torch.Tensor, p: torch.Tensor,
         for it in range(pop_cap):
             if it % 16 == 0 and not bool(active.any()):
                 break
+            if counts is not None:
+                counts[:, 0] += active[:, 0].int()
             m = torch.where(scan, inf, dist)
             d = m.amin(1, keepdim=True)
             j = torch.where(m == d, lane, _IDX_BIG).amin(
@@ -251,6 +299,8 @@ def augment_torch(owner: torch.Tensor, price: torch.Tensor, p: torch.Tensor,
             pred = torch.where(improve, jstar, pred)
             active = still
         # pop cap reached before a free object: the nearest reachable free one
+        if counts is not None:
+            counts[:, 1] += active[:, 0].int()
         free_dist = torch.where(owner < 0, dist, inf)
         dfree = free_dist.amin(1, keepdim=True)
         jfree = torch.where(free_dist == dfree, lane, _IDX_BIG).amin(
@@ -272,25 +322,31 @@ def augment_torch(owner: torch.Tensor, price: torch.Tensor, p: torch.Tensor,
 
 
 def augment_cuda(owner: torch.Tensor, price: torch.Tensor, p: torch.Tensor,
-                 q: torch.Tensor, eps: float, pop_cap: int, cap: int):
-    """Launch K12: same contract as :func:`augment_torch`, one block per
-    cloud."""
+                 q: torch.Tensor, eps: float, pop_cap: int, cap: int,
+                 counts: torch.Tensor | None = None, threads: int = 0):
+    """Launch K12: same contract as :func:`augment_torch`, ``counts`` an
+    int32 [B, 2] tensor on the card; one block per cloud, of ``threads``
+    threads (a power of two from 32 to 1024; 0: the kernel's choice for
+    N', 4 columns a thread)."""
     b, n = owner.shape
     _build.require(owner, "augment owner", torch.int32, (b, n))
     _build.require(price, "augment price", torch.float32, (b, n))
     _build.require(p, "augment p", torch.float32, (b, n, 3))
     _build.require(q, "augment q", torch.float32, (b, n, 3))
+    if counts is not None:
+        _build.require(counts, "augment counts", torch.int32, (b, 2))
     owner_out = torch.empty_like(owner)
     price_out = torch.empty_like(price)
-    state = _ppt_augment_state_bytes(n)
+    state = _ppt_augment_state_bytes(n, threads)
     scratch = None
     if state > _SMEM_MAX_BYTES:
         scratch = torch.empty(b * state, dtype=torch.uint8, device=p.device)
     err = _ppt_augment(
         p.data_ptr(), q.data_ptr(), owner.data_ptr(), price.data_ptr(), b, n,
         float(np.float32(eps)), pop_cap, cap, owner_out.data_ptr(),
-        price_out.data_ptr(), _build.ptr(scratch),
-        state if scratch is not None else 0, _build.stream(p),
+        price_out.data_ptr(), _build.ptr(counts), threads,
+        _build.ptr(scratch), state if scratch is not None else 0,
+        _build.stream(p),
     )
     _build.check(err, "ppt_augment")
     augment_cuda.launches += 1
@@ -298,6 +354,29 @@ def augment_cuda(owner: torch.Tensor, price: torch.Tensor, p: torch.Tensor,
 
 
 augment_cuda.launches = 0
+
+
+def augment_threads(n: int, threads: int = 0) -> int:
+    """The block size K12 takes for N' = ``n`` columns (``threads`` if it is
+    a power of two from 32 to 1024, else the kernel's default)."""
+    return _ppt_augment_threads(n, threads)
+
+
+def augment_pop_floor(threads: int, cluster: int = 1, iters: int = 4096,
+                      device: str | torch.device = "cuda"):
+    """(cycles, ns) of one block argmin with its barrier on ``threads``
+    threads, each depending on the one before, as K12's pops do: the least
+    time of one pop, from clock64 and %globaltimer around ``iters`` of
+    them on the card. With ``cluster`` > 1 the round spans that many
+    blocks (partials through distributed shared memory, a cluster
+    barrier): the least a pop would take with a cloud split across SMs. A
+    measurement aid, not a kernel of any path."""
+    out = torch.zeros(3, dtype=torch.int64, device=device)
+    err = _ppt_augment_pop_floor(threads, cluster, iters, out.data_ptr(),
+                                 _build.stream(out))
+    _build.check(err, "ppt_augment_pop_floor")
+    cycles, ns, _ = out.tolist()
+    return cycles / iters, ns / iters
 
 
 def _hardness_hint(p: torch.Tensor, q: torch.Tensor, thresh: float = 0.04):

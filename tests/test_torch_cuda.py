@@ -408,6 +408,10 @@ def test_autoencoder_backward_cuda_matches_plain(dev):
 
 # (kind, b, n, max_iters, pop_cap, masked): N=500 pads to 512; the masked
 # case poisons ~20% of both clouds by rank, as earth_mover_distance does.
+# N' = 256, 1024, 2048 and 4096 span K12's default blocks (4 columns a
+# thread on 64 to 1024 threads) and K11's cluster sizes; B = 140 is more
+# clouds than SMs; kind "same" (q = p, 20 sweeps a phase) leaves K12 no
+# straggler.
 AUCTION_CASES = {
     "normal": ("normal", 4, 512, 15, 768, False),
     "gmm": ("gmm", 4, 512, 15, 768, False),
@@ -415,13 +419,24 @@ AUCTION_CASES = {
     "padded": ("normal", 3, 500, 15, 768, False),
     "masked": ("normal", 4, 512, 15, 768, True),
     "pop8": ("normal", 4, 512, 3, 8, False),
+    "pop1": ("normal", 4, 512, 3, 1, False),
+    "n256": ("normal", 4, 256, 15, 768, False),
+    "n1024": ("normal", 2, 1024, 15, 768, False),
+    "n2048": ("normal", 2, 2048, 15, 768, False),
+    "n4096": ("normal", 1, 4096, 15, 768, False),
+    "b140": ("normal", 140, 256, 15, 768, False),
+    "no_stragglers": ("same", 4, 512, 20, 768, False),
 }
 
 
 def _auction_inputs(case):
     kind, b, n, iters, pop, masked = AUCTION_CASES[case]
     rng = np.random.default_rng(13)
-    p, q = emd_cloud(rng, b, n, kind), emd_cloud(rng, b, n, kind)
+    if kind == "same":
+        p = emd_cloud(rng, b, n, "normal")
+        q = p.copy()
+    else:
+        p, q = emd_cloud(rng, b, n, kind), emd_cloud(rng, b, n, kind)
     if masked:
         from pytorch_points_tpu_torch.ops.emd import _poison_rank_matched
 
@@ -447,6 +462,91 @@ def test_auction_and_augment_cuda_match_plain(dev, case):
             owner, price, pp, qp, 0.005, pop, impl=impl))
     _assert_same(out["cuda"], out["torch"])
     assert (out["cuda"][2] >= 0).all()
+    if case == "no_stragglers":
+        assert (out["cuda"][0] >= 0).all()
+
+
+def _stragglers(n, b=2, seed=16):
+    """Padded config-4-like clouds [b, n, 3] after a short K11 (2 sweeps a
+    phase, plain version): many stragglers for K12."""
+    rng = np.random.default_rng(seed)
+    p, q = (torch.from_numpy(emd_cloud(rng, b, n, "normal")) for _ in "pq")
+    owner, price, pp, qp = auction._auction_owner(
+        p, q, 0.005, 2, min(n, 256), 3, 6.0, impl="torch")
+    return owner, price, pp, qp
+
+
+# (N', threads): N' = 128 at the default block (32 threads, 4 columns
+# each); N' = 2048 at each register instance (512 x 4, 256 x 8, 128 x 16),
+# on 1024 threads (4 columns, half of them past N', which start scanned)
+# and past them (64 threads: the columns stay in the state arrays); N' =
+# 4096 at its default (1024 x 4) and in the state arrays (128 threads).
+AUGMENT_BLOCKS = [(128, 0), (2048, 1024), (2048, 512), (2048, 256),
+                  (2048, 128), (2048, 64), (4096, 0), (4096, 128)]
+
+
+@pytest.mark.parametrize("n,threads", AUGMENT_BLOCKS)
+def test_augment_cuda_blocks_match_plain(dev, n, threads):
+    owner, price, pp, qp = _on(dev, *_stragglers(n))
+    cap = 128  # the first 128 stragglers a cloud: the plain loop is slow
+    got_c = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    ref_c = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    got = auction.augment_cuda(owner, price, pp, qp, 0.005, 48, cap, got_c,
+                               threads)
+    ref = auction.augment_torch(owner, price, pp, qp, 0.005, 48, cap, ref_c)
+    _assert_same((*got, got_c), (*ref, ref_c))
+    assert (got_c[:, 1] > 0).any()  # the pop cap was reached
+
+
+def test_auction_and_augment_cuda_counts_match_plain(dev):
+    # config 4's clouds at B=4: bidder scans and sweeps a phase, pops and
+    # capped stragglers a cloud, equal to the plain versions'
+    rng = np.random.default_rng(5)
+    p, q = _on(dev, emd_cloud(rng, 4, 2048, "normal"),
+               emd_cloud(rng, 4, 2048, "normal"))
+    eps_k = auction.phase_schedule(0.005, 3, 6.0)
+    ladders = ([15, 15, 15], [40, 25, 15])
+    hint = auction._hardness_hint(p, q)
+    counts = {}
+    for impl, k11, k12 in (("cuda", auction.auction_cuda,
+                            auction.augment_cuda),
+                           ("torch", auction.auction_torch,
+                            auction.augment_torch)):
+        c11 = torch.zeros((4, 2, 3), dtype=torch.int32, device=dev)
+        c12 = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+        owner, price = k11(p, q, eps_k, ladders, hint, 256, True, c11)
+        out = k12(owner, price, p, q, 0.005, 768, 4096, c12)
+        counts[impl] = (owner, price, *out, c11, c12)
+    _assert_same(counts["cuda"], counts["torch"])
+    c11, c12 = counts["cuda"][-2:]
+    assert (c11[:, 0, 0] > 2048).all() and (c11[:, 1] >= 1).all()
+    assert (c12[:, 0] >= (counts["cuda"][0] < 0).sum(1)).all()
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_auction_cuda_cluster_sizes_match_plain(dev, cluster):
+    # a cloud on 1 (one block), 2, 4 or 8 blocks of a cluster, each with a
+    # slice of the objects: owners, prices and counters as the plain one's
+    rng = np.random.default_rng(18)
+    p, q = _on(dev, emd_cloud(rng, 4, 2048, "normal"),
+               emd_cloud(rng, 4, 2048, "gmm"))
+    eps_k = auction.phase_schedule(0.005, 3, 6.0)
+    ladders = ([6, 6, 6], [6, 6, 6])
+    c_got = torch.zeros((4, 2, 3), dtype=torch.int32, device=dev)
+    c_ref = torch.zeros((4, 2, 3), dtype=torch.int32, device=dev)
+    got = auction.auction_cuda(p, q, eps_k, ladders, None, 256, True, c_got,
+                               cluster)
+    ref = auction.auction_torch(p, q, eps_k, ladders, None, 256, True, c_ref)
+    _assert_same((*got, c_got), (*ref, c_ref))
+
+
+def test_augment_cuda_pop_floor(dev):
+    # the measurement aid: a positive cycle count a round, on one block and
+    # across a cluster of two
+    for cluster in (1, 2):
+        cycles, ns = auction.augment_pop_floor(256, cluster, iters=64,
+                                               device=dev)
+        assert cycles > 0 and ns > 0
 
 
 @pytest.mark.parametrize("hint", [False, True])
@@ -508,7 +608,7 @@ def test_auction_and_augment_cuda_scratch_path(dev):
                emd_cloud(rng, 1, 6144, "normal"))
     assert auction._SMEM_MAX_BYTES < min(
         auction._build.library().ppt_auction_state_bytes(6144, 256),
-        auction._build.library().ppt_augment_state_bytes(6144))
+        auction._build.library().ppt_augment_state_bytes(6144, 0))
     out = {}
     for impl in ("cuda", "torch"):
         owner, price, pp, qp = auction._auction_owner(p, q, 0.005, 3, 256, 3,
@@ -516,6 +616,20 @@ def test_auction_and_augment_cuda_scratch_path(dev):
         out[impl] = (owner, price, *auction._residual_rounds(
             owner, price, pp, qp, 0.005, 64, impl=impl))
     _assert_same(out["cuda"], out["torch"])
+
+
+def test_augment_cuda_columns_in_memory_scratch_path(dev):
+    # 6144 columns on 256 threads: past 16 columns a thread, so dist and
+    # the scanned flags stay in the state arrays, in the scratch buffer (as
+    # at the default 1024 threads, which the test above takes)
+    owner, price, pp, qp = _on(dev, *_stragglers(6144, b=1, seed=17))
+    assert auction.augment_threads(6144, 256) == 256
+    assert auction._SMEM_MAX_BYTES < auction._build.library(
+        ).ppt_augment_state_bytes(6144, 256)
+    got = auction.augment_cuda(owner, price, pp, qp, 0.005, 32, 256,
+                               threads=256)
+    ref = auction.augment_torch(owner, price, pp, qp, 0.005, 32, 256)
+    _assert_same(got, ref)
 
 
 def test_emd_cuda_grads_match_plain(dev):

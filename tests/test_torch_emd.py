@@ -155,6 +155,80 @@ def test_auction_unassigned_count_matches_jax():
 
 
 # ---------------------------------------------------------------------------
+# The work counters of the plain K11 and K12 (the kernels write the same)
+# ---------------------------------------------------------------------------
+
+
+def _line(xs):
+    """[1, n, 3] points on the x axis."""
+    return torch.tensor([[[x, 0.0, 0.0] for x in xs]], dtype=torch.float32)
+
+
+def test_auction_counts_a_worked_case():
+    """Persons at x = 0, 1; objects at x = 1, -2; eps 0.5, chunks of one
+    person, cold start. Sweep 1: person 0 bids (-1 + 4) + .5 = 3.5 for
+    object 0; person 1 outbids it, (0 + 9) + .5 = 9.5. Sweep 2: person 0,
+    alone, takes object 1 at (-4 + 10) + .5 = 6.5 + .5 = 7: 3 bidder
+    scans in 2 sweeps. Phase 2 (owners reset, prices kept) runs the same
+    way: 10.5, then 16.5 for object 0, then 14 for object 1."""
+    p, q = _line([0.0, 1.0]), _line([1.0, -2.0])
+    counts = torch.full((1, 2, 2), -1, dtype=torch.int32)
+    owner, price = auction.auction_torch(p, q, [0.5, 0.5], ([5, 5], [5, 5]),
+                                         None, 1, False, counts)
+    assert counts.tolist() == [[[3, 3], [2, 2]]]
+    assert owner.tolist() == [[1, 0]]
+    assert price.tolist() == [[16.5, 14.0]]
+
+
+def test_augment_counts_a_worked_case():
+    """Four points at x = 0..3 on both sides, object j owned by person j+1,
+    object 3 free, so person 0 is the one straggler. Its search pops
+    columns 0, 1, 2 (each owned, relaxing the next at d = -1 + eps, -2 +
+    2 eps, -3 + 3 eps) and then the free column 3: 4 pops. At pop cap 2
+    it stops after columns 0 and 1 and takes the free column 3, which
+    column 1 relaxed last: 2 pops, one capped straggler, and the path 3 <-
+    1 <- 0 flips."""
+    x = [0.0, 1.0, 2.0, 3.0]
+    p, q = _line(x), _line(x)
+    owner = torch.tensor([[1, 2, 3, -1]], dtype=torch.int32)
+    price = torch.zeros((1, 4))
+    for pop, want, flipped in ((768, [[4, 0]], [[0, 1, 2, 3]]),
+                               (2, [[2, 1]], [[0, 1, 3, 2]])):
+        counts = torch.full((1, 2), -1, dtype=torch.int32)
+        got, _ = auction.augment_torch(owner, price, p, q, 0.25, pop, 4,
+                                       counts)
+        assert counts.tolist() == want
+        assert got.tolist() == flipped
+
+
+def test_counters_leave_owners_and_prices_unchanged():
+    rng = np.random.default_rng(35)
+    p, q = (_t(emd_cloud(rng, 3, 256, "normal")) for _ in range(2))
+    eps_k = auction.phase_schedule(EPS, 3, 6.0)
+    ladders = ([2, 2, 2], [3, 3, 3])
+    hint = torch.tensor(False)
+    plain = auction.auction_torch(p, q, eps_k, ladders, hint, 128, True)
+    k11 = torch.zeros((3, 2, 3), dtype=torch.int32)
+    counted = auction.auction_torch(p, q, eps_k, ladders, hint, 128, True,
+                                    k11)
+    for a, b in zip(plain, counted):
+        assert torch.equal(a, b)
+    owner, price = plain
+    assert ((owner < 0).sum(1) > 0).all()  # stragglers for the endgame
+    assert (k11[:, 1] == 2).all()  # no phase finished inside its 2 sweeps
+    assert (k11[:, 0, 0] > 256).all()  # 256 bidders in every first sweep
+    ends = auction.augment_torch(owner, price, p, q, EPS, 16, 4096)
+    k12 = torch.zeros((3, 2), dtype=torch.int32)
+    counted = auction.augment_torch(owner, price, p, q, EPS, 16, 4096, k12)
+    for a, b in zip(ends, counted):
+        assert torch.equal(a, b)
+    stragglers = (owner < 0).sum(1)
+    assert (k12[:, 0] >= stragglers).all()  # a pop at least each
+    assert (k12[:, 0] <= 16 * stragglers).all()
+    assert (k12[:, 1] <= stragglers).all()
+
+
+# ---------------------------------------------------------------------------
 # earth_mover_distance against the JAX op
 # ---------------------------------------------------------------------------
 
