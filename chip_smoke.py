@@ -27,11 +27,11 @@ Phases, in order; any failure raises and exits non-zero:
    cloud) bitwise equal, on config 4's normal clouds, gaussian-mixture,
    tie-grid, padded (N=2000) and masked clouds, both budget ladders, B=140
    (more clouds than SMs), N' = 256, 1024 and 4096, pop caps 1 and 8, and
-   q = p (no straggler for K12); at config 4 the counters' summary (pops
-   a cloud, capped share, us a pop, bidder scans, ms per million pair
-   evaluations) and K12 on each register block size (128, 256, 512, 1024
-   threads) beside the least time of one pop there (clock64 around a block
-   argmin) and the latency bound it gives; the Morton-ring kNN (K9),
+   q = p (K12 on built identity owners, so no straggler); at config 4 the
+   counters' summary (pops a cloud, capped share, us a pop, bidder scans,
+   ms per million pair evaluations), the least time of one pop on K12's
+   own block (clock64 around a block argmin) and the latency bound it
+   gives, and K11 on one block beside its cluster; the Morton-ring kNN (K9),
    its masked form (K10) and its stats twin at config 6's shapes, and the
    band with window centres (K7) at the masked headline's, K9 and K10 also
    against the streaming kNN (K8) at B=4 N=16384 with forced ties and
@@ -164,8 +164,6 @@ RING_WIDE_K = 100  # K9/K10 past the register lists
 CONFIG7_C = (24, 96)  # config 7's feature-space graphs (edge1, edge2)
 CONFIG7 = dict(b=8, n=2048, k=17)
 AUCTION_PHASES = 9  # past the 8 phases one K11 launch holds
-AUGMENT_BLOCKS = (128, 256, 512)  # K12's register instances at N' = 2048
-FLOOR_CLUSTERS = (2, 4)  # a pop's floor were a cloud split over SMs
 SPLIT_KERNELS = ("gather", "scatter")  # also timed device-only
 DEVICE_CALLS = 5  # calls traced for a device-only time
 
@@ -994,32 +992,14 @@ def hold_against_plain(torch, case, stats):
     return got
 
 
-def k12_blocks(torch, auction, args, ref, longest):
-    """K12 at config 4 on each block size a register instance takes at N' =
-    2048 (128 x 16, 256 x 8, 512 x 4 columns), each held bitwise against
-    the plain version's ``ref``; beside each, the least time of one pop
-    there (one barrier and one block argmin, clock64 and %globaltimer on
-    the card) and the latency bound it gives: the longest cloud's pops
-    times that floor. Then the same floor across a cluster of blocks (a
-    cluster barrier and a distributed-shared-memory exchange a round)."""
-    n = args[2].shape[1]
-    for threads in AUGMENT_BLOCKS:
-        got = auction.augment_cuda(*args, threads=threads)
-        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
-            fail(f"augment [config 4, {threads} threads]: differs from plain")
-        ms = cuda_ms(torch, lambda t=threads: auction.augment_cuda(
-            *args, threads=t))
-        cycles, ns = auction.augment_pop_floor(threads)
-        default = " (default)" if threads == auction.augment_threads(n) else ""
-        print(f"            K12 on {threads} threads{default}: equal, {ms!r} "
-              f"ms, {ms * 1e3 / longest!r} us a pop on the longest cloud; pop "
-              f"floor {cycles!r} cycles = {ns!r} ns (clock {cycles / ns!r} "
-              f"GHz), latency bound {longest * ns * 1e-6!r} ms")
-    for cluster in FLOOR_CLUSTERS:
-        cycles, ns = auction.augment_pop_floor(128, cluster)
-        print(f"            pop floor across a cluster of {cluster} blocks of "
-              f"128 threads: {cycles!r} cycles = {ns!r} ns, latency bound "
-              f"{longest * ns * 1e-6!r} ms")
+def k12_pop_floor(auction, n, longest):
+    """The least time of one pop on K12's block for N' = ``n`` (one barrier
+    and one block argmin, clock64 and %globaltimer on the card) and the
+    latency bound it gives: the longest cloud's pops times that floor."""
+    cycles, ns = auction.augment_pop_floor(n)
+    print(f"            K12 pop floor on its block for N'={n}: {cycles!r} "
+          f"cycles = {ns!r} ns (clock {cycles / ns!r} GHz), latency bound "
+          f"{longest * ns * 1e-6!r} ms")
 
 
 def emd_counts(torch, k11, k12, n_pad, k11_ms, k12_ms, stragglers):
@@ -1037,12 +1017,13 @@ def emd_counts(torch, k11, k12, n_pad, k11_ms, k12_ms, stragglers):
         return
     pops = k12[:, 0]
     longest = int(pops.max())
+    per_pop = (f"{k12_ms * 1e3 / longest!r} us a pop on the longest cloud"
+               if longest else "no pops")
     print(f"            K12 counters: pops a cloud: max {longest} (cloud "
           f"{int(pops.argmax())}), mean {pops.double().mean().item()!r}, "
           f"total {int(pops.sum())}; capped stragglers {int(k12[:, 1].sum())}"
           f" of {stragglers} ({k12[:, 1].sum().item() / max(1, stragglers)!r}"
-          f"); {k12_ms * 1e3 / max(longest, 1)!r} us a pop on the longest "
-          "cloud")
+          f"); {per_pop}")
     return longest
 
 
@@ -1084,8 +1065,9 @@ def check_emd_kernels(torch, dev, stats):
          t(normal(rng, b, 1024)), (1,), ladders),
         ("B2 N=4096 normal", t(normal(rng, 2, 4096)),
          t(normal(rng, 2, 4096)), (64,), ladders),
-        # q = p: K12 gets every person already holding its twin (identity
-        # owners, K11's prices), so it has no straggler
+        # q = p: K12 runs on identity owners built here (every person
+        # holding its twin) with K11's prices, so it has no straggler; K11
+        # itself may leave some within its sweeps
         (f"B{b} N={n} q = p", same, same.clone(), (768,), ladders),
     ]
     eps_k = auction.phase_schedule(EMD_EPS, EMD_PHASES, 6.0)
@@ -1134,8 +1116,10 @@ def check_emd_kernels(torch, dev, stats):
             def k12_ops(got, n_pad=n_pad):  # a column relaxed a pop
                 return DIST_FLOPS * n_pad * got[2][:, 0].sum().item()
 
-            done, done_price, c12 = hold_against_plain(torch, Case(
-                "augment", f"{label}, pop {pop}", k12,
+            owners = (", built identity owners" if label.endswith("q = p")
+                      else "")
+            done, _, c12 = hold_against_plain(torch, Case(
+                "augment", f"{label}{owners}, pop {pop}", k12,
                 [owner, price, pp, qp], k12_ops), stats)
             k12_ms = stats["augment"]["last_ms"]
             if not (torch.sort(done, 1).values == torch.arange(
@@ -1157,9 +1141,7 @@ def check_emd_kernels(torch, dev, stats):
         if label.endswith("q = p") and int(c12.sum()) != 0:
             fail(f"augment [{label}]: pops without a straggler")
         if label.startswith("config 4"):
-            k12_blocks(torch, auction,
-                       (owner, price, pp, qp, EMD_EPS, 768, cap),
-                       (done, done_price), longest)
+            k12_pop_floor(auction, n_pad, longest)
     if hints != {False, True}:
         fail(f"the EMD cases took only hint {hints}: both ladders must run")
     # K11 past the 8 phases one launch holds: two chained launches

@@ -9,7 +9,8 @@
 // Semantics, as the Pallas kernel's:
 //  * benefit[i][j] = -(((dx*dx) + dy*dy) + dz*dz), each operation rounded on
 //    its own (ppt::sqdist3); nvcc would otherwise contract into FMAs;
-//  * warm start: price[j] = max_i benefit[i][j], folded from -1e30;
+//  * warm start: price[j] = max_i benefit[i][j] over the persons of whole
+//    chunks (i < (n / ti) * ti, the ones that bid), folded from -1e30;
 //  * persons bid in chunks of ti. Every bid of a chunk uses the prices as
 //    they stood at the chunk's start (Jacobi); the chunk is resolved before
 //    the next one bids (Gauss-Seidel). A person who owns an object at the
@@ -63,6 +64,10 @@
 #include <cooperative_groups.h>
 #include <limits.h>
 #include <math.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include "common.cuh"
 
@@ -334,6 +339,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const State s = carve(base, n, ti, sl.cs);
   const float* pb = p + static_cast<size_t>(b) * n * 3;
   const float* qb = q + static_cast<size_t>(b) * n * 3;
+  const int chunk_end = (n / ti) * ti;  // persons past it never bid
 
   for (int j = tid; j < n; j += kThreads) {
     s.px[j] = pb[3 * j];
@@ -350,7 +356,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (price_in != nullptr || !warm_start) {
     for (int j = sl.lo + tid; j < sl.hi; j += kThreads)  // read, then written
       s.obj[j].w = price_in ? price_in[static_cast<size_t>(b) * n + j] : 0.f;
-  } else {  // each object's max over the persons, kWarmCols at a time
+  } else {  // each object's max over the persons that bid (those of
+            // whole chunks, as the reference folds), kWarmCols at a time
     for (int j0 = sl.lo + tid; j0 < sl.hi; j0 += kWarmCols * kThreads) {
       float x[kWarmCols], y[kWarmCols], z[kWarmCols], pr[kWarmCols];
 #pragma unroll
@@ -361,7 +368,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         z[u] = s.obj[j].z;
         pr[u] = kNeg;
       }
-      for (int i = 0; i < n; ++i) {
+      for (int i = 0; i < chunk_end; ++i) {
         const float pix = s.px[i], piy = s.py[i], piz = s.pz[i];
 #pragma unroll
         for (int u = 0; u < kWarmCols; ++u)
@@ -374,7 +381,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   const int ladder = (hint != nullptr && *hint) ? 1 : 0;
-  const int chunk_end = (n / ti) * ti;
   for (int ph = 0; ph < sched.phases; ++ph) {
     const int bound = sched.budgets[ladder][ph];
     const float eps_k = sched.eps[ph];
@@ -481,27 +487,35 @@ __global__ void __launch_bounds__(kThreads, 1)
   if constexpr (kCluster) cg::this_cluster().sync();  // no block leaves early
 }
 
-int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return count;
-}
-
 // Blocks a cloud's cluster takes: the most, up to 8, whose clusters all
-// fit on the card at once (b x cs blocks, at most one a SM) with slices of
-// at least 256 objects; 1 (no cluster) otherwise.
-int cluster_size(int b, int n, int ti) {
+// fit on device dev at once (b x cs blocks, at most one a SM) with slices
+// of at least 256 objects; 1 (no cluster) otherwise. A size the runtime
+// refuses leaves no error behind.
+int query_cluster_size(int dev, int b, int n, int ti) {
+  auto* kernel = auction_kernel<true, true>;
+  int sms = 0, optin = 0;
+  cudaFuncAttributes fa;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&fa, kernel) != cudaSuccess) {
+    cudaGetLastError();
+    return 1;
+  }
+  // the dynamic shared memory a block may opt into beside the static arrays
+  const size_t limit = static_cast<size_t>(optin) > fa.sharedSizeBytes
+                           ? static_cast<size_t>(optin) - fa.sharedSizeBytes
+                           : 0;
   for (int cs = kMaxCluster; cs >= 2; --cs) {
     const size_t smem = state_bytes(n, ti, cs);
-    if (n / cs < 256 || b * cs > sm_count() || smem > 227 * 1024) continue;
-    if (cudaFuncSetAttribute(auction_kernel<true, true>,
+    if (n / cs < 256 || b * cs > sms || smem > limit) continue;
+    if (cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem)) != cudaSuccess)
+                             static_cast<int>(smem)) != cudaSuccess) {
+      cudaGetLastError();
       continue;
+    }
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(b * cs);
     cfg.blockDim = dim3(kThreads);
@@ -514,13 +528,36 @@ int cluster_size(int b, int n, int ti) {
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
     int clusters = 0;
-    if (cudaOccupancyMaxActiveClusters(&clusters, auction_kernel<true, true>,
-                                       &cfg) == cudaSuccess &&
-        clusters >= b)
-      return cs;
+    if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) !=
+        cudaSuccess) {
+      cudaGetLastError();
+      continue;
+    }
+    if (clusters >= b) return cs;
   }
-  cudaGetLastError();  // a refused size is no error of the launch
   return 1;
+}
+
+// query_cluster_size on the current device, asked once a (device, b, n,
+// ti): a train step then pays no occupancy queries.
+int cluster_size(int b, int n, int ti) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, int, int, int>, int> known;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) {
+    cudaGetLastError();
+    return 1;
+  }
+  const auto key = std::make_tuple(dev, b, n, ti);
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto it = known.find(key);
+    if (it != known.end()) return it->second;
+  }
+  const int cs = query_cluster_size(dev, b, n, ti);
+  std::lock_guard<std::mutex> lock(mu);
+  known.emplace(key, cs);
+  return cs;
 }
 
 }  // namespace
@@ -562,7 +599,9 @@ extern "C" int ppt_auction(const float* p, const float* q, int b, int n,
   auto* kernel = scratch ? auction_kernel<false, false>
                          : (cs > 1 ? auction_kernel<true, true>
                                    : auction_kernel<true, false>);
-  if (smem > 32 * 1024) {  // past the default 48 KB with the static arrays
+  // set on every launch: cluster_size may have left a smaller limit, asked
+  // for another shape
+  if (smem > 0) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));

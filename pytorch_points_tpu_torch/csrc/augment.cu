@@ -28,12 +28,13 @@
 // one block barrier and a block-wide argmin after N' / T column relaxes
 // on each thread: at N' = 2048 the barrier and argmin alone take ~350
 // cycles on 512 threads, and the relax about as much again. The design:
-//  * a thread's C = 4 columns (column k of thread t is j = t + k * T, T a
-//    power of two; 8 and 16 columns on 256 and 128 threads for the same
-//    N' are instances for measurement) keep dist and qx, qy, qz, qn in
-//    registers, so a relax reads no shared memory but the popped column's
-//    owner row (a broadcast). Shared memory keeps what is read by index or
-//    once a straggler: owner, the owner's coordinates and psq by column
+//  * a thread's 4 columns (column k of thread t is j = t + k * T, T the
+//    least power of two from 32 with 4 T >= N'; 512 threads at N' = 2048,
+//    where 128 and 256 threads of 16 and 8 columns were measured slower)
+//    keep dist and qx, qy, qz, qn in registers, so a relax reads no
+//    shared memory but the popped column's owner row (a broadcast).
+//    Shared memory keeps what is read by index or once a straggler:
+//    owner, the owner's coordinates and psq by column
 //    (so a pop reads them in one step), pred (written only where a relax
 //    improves), price, a copy of qx, qy, qz and the straggler's qn for the
 //    j* lookup, and the straggler list;
@@ -46,34 +47,26 @@
 //    after it and reduces again (the partials double-buffered, so the next
 //    pop's writes need no barrier);
 //  * one block a cloud. A cluster barrier with a distributed-shared-memory
-//    exchange costs ~930-980 cycles a round at 2-4 blocks of 128 threads,
-//    more than a whole pop takes on one block, so a cloud is not split.
+//    exchange was measured at ~990-1010 cycles a round on 2-4 blocks of
+//    128 threads, more than a whole pop takes on one block, so a cloud is
+//    not split.
 // Past 4096 columns (4 a thread on 1024 threads) a thread's columns stay in
-// the state arrays (C = 0), and past the shared-memory budget the state
-// lives in a global scratch buffer. With B blocks only B of the 132 SMs
+// the state arrays (C = 0), which then pass the shared-memory budget and
+// live in a global scratch buffer. With B blocks only B of the 132 SMs
 // work.
 #include <limits.h>
 #include <math.h>
 
-#include <cooperative_groups.h>
 #include <type_traits>
 
 #include "common.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kRegCols = 4;  // columns a thread keeps in registers
 constexpr float kInf = 1.0e30f;
-
-// The most threads an instance runs on: its registers (C columns of dist,
-// qx, qy, qz, qn) must fit 65,536 / threads.
-__host__ __device__ constexpr int max_threads(int c) {
-  return c <= 4 ? 1024 : (c == 8 ? 512 : 256);
-}
-
 
 // Per-cloud state. qrow[j] = (qx, qy, qz, qn) of column j, qn the
 // straggler's; orow[j] = (px, py, pz, psq) of the person owning column j
@@ -220,12 +213,12 @@ __device__ __forceinline__ void block_argmin(float v, int j, float& d,
   block_finish(key, idx, d, jj, part, buf, warps);
 }
 
-// C > 0: RegCols<C>, the state in shared memory; C == 0: MemCols, the
-// state in shared memory or (scratch non-null) in the scratch buffer. The
-// register instances name shared memory itself, so their state accesses
-// compile to shared-memory instructions. T = blockDim.x = 1 << log_t.
+// C = kRegCols: RegCols<C>, the state in shared memory; C == 0: MemCols,
+// the state in the scratch buffer. The register instance names shared
+// memory itself, so its state accesses compile to shared-memory
+// instructions. T = blockDim.x = 1 << log_t.
 template <int C>
-__global__ void __launch_bounds__(max_threads(C))
+__global__ void __launch_bounds__(kMaxThreads)
     augment_kernel(const float* __restrict__ p, const float* __restrict__ q,
                    const int* __restrict__ owner_in,
                    const float* __restrict__ price_in, int n, int log_t,
@@ -244,8 +237,7 @@ __global__ void __launch_bounds__(max_threads(C))
   const int lane = tid & 31;
   const int cols = C > 0 ? C : (n - tid + nt - 1) >> log_t;
   char* base = smem;
-  if constexpr (C == 0)
-    if (scratch != nullptr) base = scratch + b * scratch_stride;
+  if constexpr (C == 0) base = scratch + b * scratch_stride;
   const State s = carve(base, n, C == 0);
   Cols c(s, tid, nt, n);
   const size_t row0 = static_cast<size_t>(b) * n;
@@ -439,75 +431,17 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// The same round for a cloud spread over a cluster of blocks: each warp's
-// partial goes to every block through distributed shared memory, then one
-// cluster barrier, then every warp reduces the cluster's partials. What a
-// pop would pay at least if a cloud's columns were split across SMs.
-__global__ void __launch_bounds__(kMaxThreads)
-    cluster_floor_kernel(int iters, long long* out) {
-  __shared__ uint2 part[2][kMaxWarps];
-  cg::cluster_group cl = cg::this_cluster();
-  const int cs = static_cast<int>(cl.num_blocks());
-  const int rank = static_cast<int>(cl.block_rank());
-  const int warps = blockDim.x >> 5;
-  const int lane = threadIdx.x & 31;
-  int buf = 0;
-  unsigned jj = 0;
-  cl.sync();
-  const long long c0 = clock64();
-  unsigned long long t0;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
-  for (int it = 0; it < iters; ++it) {
-    unsigned key = ((threadIdx.x + rank * blockDim.x) * 2654435761u ^ jj) &
-                   0xffffu;
-    unsigned idx = threadIdx.x + rank * blockDim.x;
-    warp_argmin(key, idx);
-    if (lane < cs)
-      *cl.map_shared_rank(&part[buf][rank * warps + (threadIdx.x >> 5)],
-                          lane) = make_uint2(key, idx);
-    cl.sync();
-    const uint2 w = lane < cs * warps ? part[buf][lane]
-                                      : make_uint2(UINT_MAX, UINT_MAX);
-    key = w.x;
-    idx = w.y;
-    warp_argmin(key, idx);
-    jj = key + idx;
-    buf ^= 1;
-  }
-  const long long c1 = clock64();
-  unsigned long long t1;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t1));
-  if (threadIdx.x == 0 && rank == 0) {
-    out[0] = c1 - c0;
-    out[1] = static_cast<long long>(t1 - t0);
-    out[2] = jj;  // keeps the loop live
-  }
-  cl.sync();  // no block leaves while another may still store to it
-}
-
-// Columns a thread keeps in registers for n columns on `threads` threads:
-// the least of 4, 8, 16 that covers them within its instance's thread
-// limit, or 0 (the state arrays).
-int columns_per_thread(int n, int threads) {
-  for (int c = 4; c <= 16; c *= 2)
-    if (threads <= max_threads(c) &&
-        static_cast<long long>(c) * threads >= n)
-      return c;
-  return 0;
-}
-
-bool power_of_two_threads(int t) {
-  return t >= 32 && t <= kMaxThreads && (t & (t - 1)) == 0;
-}
-
-// Default block: 4 columns a thread, on a power of two of threads up to
-// 1024 (N' <= 4096); past that 1024 threads over the state arrays.
-int default_threads(int n) {
-  const int want = (n + 3) / 4;
+// Block for n columns: 4 a thread, on the least power of two of threads
+// from 32 that covers them, up to 1024 (N' <= 4096); past that 1024
+// threads over the state arrays.
+int block_threads(int n) {
+  const int want = (n + kRegCols - 1) / kRegCols;
   int t = 32;
   while (t < want && t < kMaxThreads) t *= 2;
   return t;
 }
+
+bool columns_in_registers(int n) { return n <= kRegCols * kMaxThreads; }
 
 template <int C>
 cudaError_t launch(int b, int threads, size_t smem, cudaStream_t stream,
@@ -531,78 +465,40 @@ cudaError_t launch(int b, int threads, size_t smem, cudaStream_t stream,
 
 }  // namespace
 
-// Block size for n columns: `threads` if it is a power of two in [32,
-// 1024], else the default.
-extern "C" int ppt_augment_threads(int n, int threads) {
-  return power_of_two_threads(threads) ? threads : default_threads(n);
-}
-
-// Bytes of one cloud's state on `threads` threads (see ppt_augment_threads);
-// the wrapper passes a scratch buffer of b * this many bytes when it is
-// above its shared-memory budget.
-extern "C" int ppt_augment_state_bytes(int n, int threads) {
-  const int t = ppt_augment_threads(n, threads);
-  return static_cast<int>(state_bytes(n, columns_per_thread(n, t) == 0));
+// Bytes of one cloud's state; the wrapper passes a scratch buffer of b *
+// this many bytes when it is above its shared-memory budget (N' > 4096).
+extern "C" int ppt_augment_state_bytes(int n) {
+  return static_cast<int>(state_bytes(n, !columns_in_registers(n)));
 }
 
 // p, q: float [B, N, 3] (padded); owner_in: int [B, N] object -> person
 // (-1 = free); price_in: float [B, N]. out_owner, out_price: the same after
 // the endgame. counts: null or int [B, 2] (pops, capped stragglers a
-// cloud). threads: the block size (0: the default). scratch: null (state
-// in shared memory) or b * scratch_stride bytes.
+// cloud). scratch: null (state in shared memory, N' <= 4096) or b *
+// scratch_stride bytes (the columns then stay in the state arrays).
 extern "C" int ppt_augment(const float* p, const float* q,
                            const int* owner_in, const float* price_in, int b,
                            int n, float eps, int pop_cap, int cap,
                            int* out_owner, float* out_price, int* counts,
-                           int threads, char* scratch, int scratch_stride,
+                           char* scratch, int scratch_stride,
                            cudaStream_t stream) {
   if (b == 0 || n == 0) return cudaSuccess;
-  const int t = ppt_augment_threads(n, threads);
-  const int c = scratch ? 0 : columns_per_thread(n, t);
-  const size_t smem = scratch ? 0 : state_bytes(n, c == 0);
-  switch (c) {
-    case 4:
-      return launch<4>(b, t, smem, stream, p, q, owner_in, price_in, n, eps,
-                       pop_cap, cap, out_owner, out_price, counts, scratch,
-                       scratch_stride);
-    case 8:
-      return launch<8>(b, t, smem, stream, p, q, owner_in, price_in, n, eps,
-                       pop_cap, cap, out_owner, out_price, counts, scratch,
-                       scratch_stride);
-    case 16:
-      return launch<16>(b, t, smem, stream, p, q, owner_in, price_in, n, eps,
-                        pop_cap, cap, out_owner, out_price, counts, scratch,
-                        scratch_stride);
-    default:
-      return launch<0>(b, t, smem, stream, p, q, owner_in, price_in, n, eps,
-                       pop_cap, cap, out_owner, out_price, counts, scratch,
-                       scratch_stride);
-  }
+  const int t = block_threads(n);
+  if (scratch != nullptr)
+    return launch<0>(b, t, 0, stream, p, q, owner_in, price_in, n, eps,
+                     pop_cap, cap, out_owner, out_price, counts, scratch,
+                     scratch_stride);
+  if (!columns_in_registers(n)) return cudaErrorInvalidValue;
+  return launch<kRegCols>(b, t, state_bytes(n, false), stream, p, q,
+                          owner_in, price_in, n, eps, pop_cap, cap,
+                          out_owner, out_price, counts, nullptr, 0);
 }
 
-// Times the floor of one pop at `threads` threads a block, on one block
-// (cluster 1) or across a cluster of blocks (cluster x threads / 32 <= 32
-// warps): out (device, 3 int64): clock64 cycles and globaltimer ns over
-// `iters` rounds.
-extern "C" int ppt_augment_pop_floor(int threads, int cluster, int iters,
-                                     long long* out, cudaStream_t stream) {
-  if (!power_of_two_threads(threads) || cluster < 1 ||
-      cluster * threads > kMaxThreads)
-    return cudaErrorInvalidValue;
-  if (cluster == 1) {
-    pop_floor_kernel<<<1, threads, 0, stream>>>(iters, out);
-    return cudaGetLastError();
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster);
-  cfg.blockDim = dim3(threads);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, cluster_floor_kernel, iters, out);
+// Times the floor of one pop on K12's own block for n columns: out
+// (device, 3 int64): clock64 cycles and globaltimer ns over `iters` rounds.
+extern "C" int ppt_augment_pop_floor(int n, int iters, long long* out,
+                                     cudaStream_t stream) {
+  if (n < 1 || iters < 1) return cudaErrorInvalidValue;
+  pop_floor_kernel<<<1, block_threads(n), 0, stream>>>(iters, out);
+  return cudaGetLastError();
 }

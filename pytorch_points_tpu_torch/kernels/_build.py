@@ -67,16 +67,14 @@ _SIGNATURES = {
     # out_owner, out_price, counts, cluster, scratch, scratch_stride, stream
     "ppt_auction": [_P, _P, _I, _I, _I, _I, _FA, _IA, _P, _I, _P, _P, _P, _I,
                     _P, _I, _P],
-    # n, threads (0: default) -> the block size K12 takes
-    "ppt_augment_threads": [_I, _I],
-    # n, threads -> bytes of one cloud's state
-    "ppt_augment_state_bytes": [_I, _I],
+    # n -> bytes of one cloud's state
+    "ppt_augment_state_bytes": [_I],
     # p, q, owner_in, price_in, b, n, eps, pop_cap, cap, out_owner,
-    # out_price, counts, threads, scratch, scratch_stride, stream
-    "ppt_augment": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P, _P, _P, _I, _P,
-                    _I, _P],
-    # threads, cluster, iters, out (3 int64), stream
-    "ppt_augment_pop_floor": [_I, _I, _I, _P, _P],
+    # out_price, counts, scratch, scratch_stride, stream
+    "ppt_augment": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P, _P, _P, _P, _I,
+                    _P],
+    # n (K12's block for n columns), iters, out (3 int64), stream
+    "ppt_augment_pop_floor": [_I, _I, _P, _P],
 }
 
 

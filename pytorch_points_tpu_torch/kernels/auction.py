@@ -53,7 +53,6 @@ _ppt_auction_state_bytes = _build.entry("ppt_auction_state_bytes")
 _ppt_auction_cluster = _build.entry("ppt_auction_cluster")
 _ppt_augment = _build.entry("ppt_augment")
 _ppt_augment_state_bytes = _build.entry("ppt_augment_state_bytes")
-_ppt_augment_threads = _build.entry("ppt_augment_threads")
 _ppt_augment_pop_floor = _build.entry("ppt_augment_pop_floor")
 
 _IDX_BIG = 2**30
@@ -323,11 +322,10 @@ def augment_torch(owner: torch.Tensor, price: torch.Tensor, p: torch.Tensor,
 
 def augment_cuda(owner: torch.Tensor, price: torch.Tensor, p: torch.Tensor,
                  q: torch.Tensor, eps: float, pop_cap: int, cap: int,
-                 counts: torch.Tensor | None = None, threads: int = 0):
+                 counts: torch.Tensor | None = None):
     """Launch K12: same contract as :func:`augment_torch`, ``counts`` an
-    int32 [B, 2] tensor on the card; one block per cloud, of ``threads``
-    threads (a power of two from 32 to 1024; 0: the kernel's choice for
-    N', 4 columns a thread)."""
+    int32 [B, 2] tensor on the card; one block per cloud, 4 columns a
+    thread up to N' = 4096 (1024 threads over the state arrays past it)."""
     b, n = owner.shape
     _build.require(owner, "augment owner", torch.int32, (b, n))
     _build.require(price, "augment price", torch.float32, (b, n))
@@ -337,16 +335,15 @@ def augment_cuda(owner: torch.Tensor, price: torch.Tensor, p: torch.Tensor,
         _build.require(counts, "augment counts", torch.int32, (b, 2))
     owner_out = torch.empty_like(owner)
     price_out = torch.empty_like(price)
-    state = _ppt_augment_state_bytes(n, threads)
+    state = _ppt_augment_state_bytes(n)
     scratch = None
     if state > _SMEM_MAX_BYTES:
         scratch = torch.empty(b * state, dtype=torch.uint8, device=p.device)
     err = _ppt_augment(
         p.data_ptr(), q.data_ptr(), owner.data_ptr(), price.data_ptr(), b, n,
         float(np.float32(eps)), pop_cap, cap, owner_out.data_ptr(),
-        price_out.data_ptr(), _build.ptr(counts), threads,
-        _build.ptr(scratch), state if scratch is not None else 0,
-        _build.stream(p),
+        price_out.data_ptr(), _build.ptr(counts), _build.ptr(scratch),
+        state if scratch is not None else 0, _build.stream(p),
     )
     _build.check(err, "ppt_augment")
     augment_cuda.launches += 1
@@ -356,24 +353,15 @@ def augment_cuda(owner: torch.Tensor, price: torch.Tensor, p: torch.Tensor,
 augment_cuda.launches = 0
 
 
-def augment_threads(n: int, threads: int = 0) -> int:
-    """The block size K12 takes for N' = ``n`` columns (``threads`` if it is
-    a power of two from 32 to 1024, else the kernel's default)."""
-    return _ppt_augment_threads(n, threads)
-
-
-def augment_pop_floor(threads: int, cluster: int = 1, iters: int = 4096,
+def augment_pop_floor(n: int, iters: int = 4096,
                       device: str | torch.device = "cuda"):
-    """(cycles, ns) of one block argmin with its barrier on ``threads``
-    threads, each depending on the one before, as K12's pops do: the least
-    time of one pop, from clock64 and %globaltimer around ``iters`` of
-    them on the card. With ``cluster`` > 1 the round spans that many
-    blocks (partials through distributed shared memory, a cluster
-    barrier): the least a pop would take with a cloud split across SMs. A
-    measurement aid, not a kernel of any path."""
+    """(cycles, ns) of one block argmin with its barrier on the block K12
+    takes for N' = ``n`` columns, each depending on the one before, as
+    K12's pops do: the least time of one pop, from clock64 and
+    %globaltimer around ``iters`` of them on the card. A measurement aid
+    for K12's latency bound, not a kernel of any path."""
     out = torch.zeros(3, dtype=torch.int64, device=device)
-    err = _ppt_augment_pop_floor(threads, cluster, iters, out.data_ptr(),
-                                 _build.stream(out))
+    err = _ppt_augment_pop_floor(n, iters, out.data_ptr(), _build.stream(out))
     _build.check(err, "ppt_augment_pop_floor")
     cycles, ns, _ = out.tolist()
     return cycles / iters, ns / iters

@@ -476,24 +476,22 @@ def _stragglers(n, b=2, seed=16):
     return owner, price, pp, qp
 
 
-# (N', threads): N' = 128 at the default block (32 threads, 4 columns
-# each); N' = 2048 at each register instance (512 x 4, 256 x 8, 128 x 16),
-# on 1024 threads (4 columns, half of them past N', which start scanned)
-# and past them (64 threads: the columns stay in the state arrays); N' =
-# 4096 at its default (1024 x 4) and in the state arrays (128 threads).
-AUGMENT_BLOCKS = [(128, 0), (2048, 1024), (2048, 512), (2048, 256),
-                  (2048, 128), (2048, 64), (4096, 0), (4096, 128)]
+# (N', pop cap) at K12's blocks of 4 columns a thread: 128 on 32 threads,
+# 768 on 256 (256 columns past N', which start scanned), 2048 on 512 and
+# 4096 on 1024; 4352 past them (1024 threads, the columns in the state
+# arrays in the scratch buffer), where a pop cap of 16 is reached.
+AUGMENT_BLOCKS = [(128, 48), (768, 48), (2048, 48), (4096, 48), (4352, 16)]
 
 
-@pytest.mark.parametrize("n,threads", AUGMENT_BLOCKS)
-def test_augment_cuda_blocks_match_plain(dev, n, threads):
+@pytest.mark.parametrize("n,pop", AUGMENT_BLOCKS)
+def test_augment_cuda_blocks_match_plain(dev, n, pop):
     owner, price, pp, qp = _on(dev, *_stragglers(n))
+    assert pp.shape[1] == n
     cap = 128  # the first 128 stragglers a cloud: the plain loop is slow
     got_c = torch.zeros((2, 2), dtype=torch.int32, device=dev)
     ref_c = torch.zeros((2, 2), dtype=torch.int32, device=dev)
-    got = auction.augment_cuda(owner, price, pp, qp, 0.005, 48, cap, got_c,
-                               threads)
-    ref = auction.augment_torch(owner, price, pp, qp, 0.005, 48, cap, ref_c)
+    got = auction.augment_cuda(owner, price, pp, qp, 0.005, pop, cap, got_c)
+    ref = auction.augment_torch(owner, price, pp, qp, 0.005, pop, cap, ref_c)
     _assert_same((*got, got_c), (*ref, ref_c))
     assert (got_c[:, 1] > 0).any()  # the pop cap was reached
 
@@ -540,12 +538,31 @@ def test_auction_cuda_cluster_sizes_match_plain(dev, cluster):
     _assert_same((*got, c_got), (*ref, c_ref))
 
 
+def test_auction_cuda_cluster_size_near_the_shared_memory_limit(dev):
+    # N' = 4648: a cluster of 3 needs 232,160 bytes a block, above what a
+    # block may opt into beside K11's static arrays; 2 fit. The lookup
+    # skips 3 without leaving an error for the launch to report, and asks
+    # once a shape. 4648 is no multiple of ti: the last 40 persons never
+    # bid, and the warm start folds only the persons of whole chunks.
+    rng = np.random.default_rng(19)
+    p, q = _on(dev, emd_cloud(rng, 2, 4648, "normal"),
+               emd_cloud(rng, 2, 4648, "normal"))
+    assert auction.auction_cluster_size(2, 4648, 256) == 2
+    assert auction.auction_cluster_size(2, 4648, 256) == 2
+    eps_k = auction.phase_schedule(0.005, 3, 6.0)
+    ladders = ([3, 3, 3], [3, 3, 3])
+    ref = auction.auction_torch(p, q, eps_k, ladders, None, 256, True)
+    for cluster in (0, 1):
+        got = auction.auction_cuda(p, q, eps_k, ladders, None, 256, True,
+                                   cluster=cluster)
+        _assert_same(got, ref)
+
+
 def test_augment_cuda_pop_floor(dev):
-    # the measurement aid: a positive cycle count a round, on one block and
-    # across a cluster of two
-    for cluster in (1, 2):
-        cycles, ns = auction.augment_pop_floor(256, cluster, iters=64,
-                                               device=dev)
+    # the measurement aid: a positive cycle count a round on K12's block for
+    # N' = 128 (32 threads), 2048 (512) and 6144 (1024)
+    for n in (128, 2048, 6144):
+        cycles, ns = auction.augment_pop_floor(n, iters=64, device=dev)
         assert cycles > 0 and ns > 0
 
 
@@ -608,7 +625,7 @@ def test_auction_and_augment_cuda_scratch_path(dev):
                emd_cloud(rng, 1, 6144, "normal"))
     assert auction._SMEM_MAX_BYTES < min(
         auction._build.library().ppt_auction_state_bytes(6144, 256),
-        auction._build.library().ppt_augment_state_bytes(6144, 0))
+        auction._build.library().ppt_augment_state_bytes(6144))
     out = {}
     for impl in ("cuda", "torch"):
         owner, price, pp, qp = auction._auction_owner(p, q, 0.005, 3, 256, 3,
@@ -619,15 +636,13 @@ def test_auction_and_augment_cuda_scratch_path(dev):
 
 
 def test_augment_cuda_columns_in_memory_scratch_path(dev):
-    # 6144 columns on 256 threads: past 16 columns a thread, so dist and
-    # the scanned flags stay in the state arrays, in the scratch buffer (as
-    # at the default 1024 threads, which the test above takes)
+    # 6144 columns on 1024 threads: past 4 columns a thread, so dist and
+    # the scanned flags stay in the state arrays, in the scratch buffer; on
+    # K12 alone, from many stragglers (the test above reaches it after K11)
     owner, price, pp, qp = _on(dev, *_stragglers(6144, b=1, seed=17))
-    assert auction.augment_threads(6144, 256) == 256
     assert auction._SMEM_MAX_BYTES < auction._build.library(
-        ).ppt_augment_state_bytes(6144, 256)
-    got = auction.augment_cuda(owner, price, pp, qp, 0.005, 32, 256,
-                               threads=256)
+        ).ppt_augment_state_bytes(6144)
+    got = auction.augment_cuda(owner, price, pp, qp, 0.005, 32, 256)
     ref = auction.augment_torch(owner, price, pp, qp, 0.005, 32, 256)
     _assert_same(got, ref)
 
