@@ -35,9 +35,11 @@ Phases, in order; any failure raises and exits non-zero:
    its masked form (K10) and its stats twin at config 6's shapes, and the
    band with window centres (K7) at the masked headline's, K9 and K10 also
    against the streaming kNN (K8) at B=4 N=16384 with forced ties and
-   ragged valid counts; the ball query that emits centred coordinates at
-   the serve and headline shapes and on a 75%-valid mask with a zero-hit
-   row whose point 0 is masked; the worklist NN on the pruned NN's own
+   ragged valid counts, K9 also at config 6 with k = 1, 64 and 65, and each
+   ring case with its work counter (the pairs its warps scanned, equal to
+   the plain version's) beside the bound's tile-level pairs; the ball query
+   that emits centred coordinates at the serve and headline shapes and on a
+   75%-valid mask with a zero-hit row whose point 0 is masked; the worklist NN on the pruned NN's own
    inputs (B=32 N=16384, q a shuffle of p) and on a tie grid with a random
    candidate mask; the older-layout gather at its test shape; the repairs:
    K8 at k = 65 and 128 (passes of 64), K9 and K10 at k = 100 (the wide
@@ -77,11 +79,12 @@ Phases, in order; any failure raises and exits non-zero:
    finite and in range; at a small size, COV/MMD and 1-NNA equal to the
    plain versions';
 8. config 6: ops.knn(x, x, 16) at B=16 N=16384 (the Morton-ring path),
-   median of 10 synchronised calls, equal to the plain versions; then the
-   ring stats twin on the same clouds, its visit rate and steps per visit
-   equal to the plain version's;
+   median of 10 synchronised calls, equal to the plain versions, and K9's
+   share of a call's device time (torch.profiler); then the ring stats twin
+   on the same clouds, its visit rate and steps per visit equal to the
+   plain version's;
 9. config 6m: the same kNN with 75% prefix-valid support masks (the masked
-   ring path); no invalid point returned;
+   ring path); no invalid point returned; K10's share of the device time;
 10. masked headline: phase 5 on 75% prefix-valid clouds (p_mask = q_mask),
    the chamfer on the "sorted_masked" path (K7 band, candidate mask, K6
    resident scan), with each direction's share of candidate tile pairs;
@@ -103,7 +106,9 @@ path was never launched.
 
 13. profile: one call of each main path, traced with torch.profiler after
    its untraced timing: wall ms, device busy ms and idle share per call,
-   and the largest device items. It checks nothing; its launches are not
+   and the largest device items; for config 6 and 6m also the glue around
+   the ring kernels (its device items and ms a call) and the host wall
+   minus the device busy. It checks nothing; its launches are not
    counted.
 
 TF32 is switched off for matmuls and cuDNN so the port computes in float32
@@ -149,6 +154,7 @@ PLAIN_SINGLE_MS = 1000.0  # a plain version this slow is timed in one call
 CONFIG6 = dict(b=16, n=16384, k=16)  # bench.py config 6: knn(x, x, 16)
 VALID_SHARE = 0.75  # config 6m's and the masked headline's prefix masks
 KNN_CALLS = 10
+KNN_TRACED = 3  # config 6/6m calls traced for the ring kernels' share
 RING_CHECK = dict(b=4, n=16384, k=16)  # the reference's at-scale checks
 RING_VALID = (16384, 12288, 12211, 9001)  # valid counts of its masked one
 FUSED_CALLS = 5
@@ -161,6 +167,7 @@ F32_FLOPS = 67e12  # float32 outside the tensor cores
 DIST_FLOPS = 8  # one squared distance: 3 subtract, 3 multiply, 2 add
 KNN_WIDE_K = (65, 128)  # K8 past one pass of 64
 RING_WIDE_K = 100  # K9/K10 past the register lists
+RING_CONFIG6_K = (1, 64, 65)  # K9 at config 6: the lists' other forms
 CONFIG7_C = (24, 96)  # config 7's feature-space graphs (edge1, edge2)
 CONFIG7 = dict(b=8, n=2048, k=17)
 AUCTION_PHASES = 9  # past the 8 phases one K11 launch holds
@@ -296,14 +303,17 @@ class Case:
     call computing the same function, or None; ``bound`` the scatter's
     summation-order bound against the plain version on the card (None:
     bitwise equal); ``cpu`` the plain version on CPU copies of the inputs,
-    which the kernel's output must equal bitwise, or None."""
+    which the kernel's output must equal bitwise, or None; ``work`` a
+    function of the kernel's outputs giving the distance pairs the kernel
+    itself computed (its work counter), printed beside the bound's, or
+    None."""
 
     def __init__(self, name, label, fn, inputs, ops=0, library=None,
-                 bound=None, cpu=None):
+                 bound=None, cpu=None, work=None):
         self.name, self.label, self.fn = name, label, fn
         self.inputs, self.ops, self.library, self.bound = (
             inputs, ops, library, bound)
-        self.cpu = cpu
+        self.cpu, self.work = cpu, work
 
 
 def nbytes(tensors):
@@ -725,8 +735,11 @@ def masked_head_clouds(torch, dev, valid=None):
 
 
 def ring_kernel_cases(torch, dev):
-    """K9, K10 and the stats twin at config 6's shapes, through their
-    wrappers on the sorted, padded clouds; K7 at the masked headline's."""
+    """K9, K10 and the stats twin at config 6's shapes (K9 also at k = 1,
+    64 and 65: a list of 8 in registers, heaps of 64 and 72 in shared
+    memory), through their wrappers on the sorted, padded clouds, each with
+    its work counter, which must equal the plain version's; K7 at the
+    masked headline's."""
     from pytorch_points_tpu_torch.core.masking import poison_points
     from pytorch_points_tpu_torch.kernels import nn_sorted as ns
     from pytorch_points_tpu_torch.kernels import topk_scan as ts
@@ -741,45 +754,56 @@ def ring_kernel_cases(torch, dev):
     def visited(counters):  # distance flops of the chunks the scan visited
         return DIST_FLOPS * ts.TQ * ts.TM * counters[..., 0].sum().item()
 
+    def ring(qs, sup, kk, centers=None, stats=False):
+        """fn(impl) -> (d, idx[, counters], work counter) of one instance."""
+        def fn(impl):
+            counts = torch.empty((qs.shape[0], qs.shape[1] // ts.WARP),
+                                 dtype=torch.int32, device=dev)
+            if impl != "cuda":
+                out = ts.knn_ring_torch(qs, sup, kk, centers, stats=stats,
+                                        counts=counts)
+            elif stats:
+                out = ts.knn_ring_stats_cuda(qs, sup, kk, counts=counts)
+            elif centers is not None:
+                out = ts.knn_ring_masked_cuda(qs, sup, kk, centers, counts)
+            else:
+                out = ts.knn_ring_cuda(qs, sup, kk, counts)
+            return (*out[:3 if stats else 2], counts)
+        return fn
+
+    def stats_of(qs, sup, kk, centers=None):
+        """The tile-level work the bound counts: the stats instance's."""
+        return lambda outs: visited(ts._launch_ring(qs, sup, kk, centers,
+                                                    ts.UNROLL, True)[2])
+
+    def work(outs):  # the pairs the kernel's warps scanned, from its counter
+        return outs[-1].sum().item() * ts.WARP * ts.SUB
+
     tag = f"config 6 B{b} N={n} k={k}"
     cases = [
-        Case("knn_ring", tag,
-             lambda impl: (ts.knn_ring_cuda(qsp, sup4, k) if impl == "cuda"
-                           else ts.knn_ring_torch(qsp, sup4, k))[:2],
-             [qsp, sup4],
-             lambda outs: visited(ts.knn_ring_stats_cuda(qsp, sup4, k)[2])),
+        Case("knn_ring", tag, ring(qsp, sup4, k), [qsp, sup4],
+             stats_of(qsp, sup4, k), work=work),
         Case("knn_ring_masked", f"config 6m B{b} N={n} k={k} 75% valid",
-             lambda impl: (ts.knn_ring_masked_cuda(mqsp, msup4, k, cen)
-                           if impl == "cuda" else
-                           ts.knn_ring_torch(mqsp, msup4, k, cen))[:2],
-             [mqsp, msup4, cen],
-             lambda outs: visited(ts._launch_ring(mqsp, msup4, k, cen,
-                                                  ts.UNROLL, True)[2])),
-        Case("knn_ring_stats", tag,
-             lambda impl: (ts.knn_ring_stats_cuda(qsp, sup4, k)
-                           if impl == "cuda" else
-                           ts.knn_ring_torch(qsp, sup4, k, stats=True)),
-             [qsp, sup4], lambda outs: visited(outs[2])),
+             ring(mqsp, msup4, k, cen), [mqsp, msup4, cen],
+             stats_of(mqsp, msup4, k, cen), work=work),
+        Case("knn_ring_stats", tag, ring(qsp, sup4, k, stats=True),
+             [qsp, sup4], lambda outs: visited(outs[2]), work=work),
     ]
-    # k = 100, past the register lists: at the reference's check shape,
-    # with forced duplicate ties and ragged valid counts
+    cases += [Case("knn_ring", f"config 6 B{b} N={n} k={kk}",
+                   ring(qsp, sup4, kk), [qsp, sup4], stats_of(qsp, sup4, kk),
+                   work=work) for kk in RING_CONFIG6_K]
+    # k = 100, a heap of 104: at the reference's check shape, with forced
+    # duplicate ties and ragged valid counts
     rb, rn, rk = RING_CHECK["b"], RING_CHECK["n"], RING_WIDE_K
     xr, xrp = ring_check_clouds(torch, dev)
     wq, ws, _, _ = ts._ring_inputs(xr, xr, False)
     mwq, mws, wcen, _ = ts._ring_inputs(xr, xrp, True)
     cases += [
-        Case("knn_ring", f"B{rb} N={rn} k={rk} forced ties",
-             lambda impl: (ts.knn_ring_cuda(wq, ws, rk) if impl == "cuda"
-                           else ts.knn_ring_torch(wq, ws, rk))[:2],
-             [wq, ws],
-             lambda outs: visited(ts.knn_ring_stats_cuda(wq, ws, rk)[2])),
+        Case("knn_ring", f"B{rb} N={rn} k={rk} forced ties", ring(wq, ws, rk),
+             [wq, ws], stats_of(wq, ws, rk), work=work),
         Case("knn_ring_masked", f"B{rb} N={rn} k={rk} valid {RING_VALID}",
-             lambda impl: (ts.knn_ring_masked_cuda(mwq, mws, rk, wcen)
-                           if impl == "cuda" else
-                           ts.knn_ring_torch(mwq, mws, rk, wcen))[:2],
-             [mwq, mws, wcen],
-             lambda outs: visited(ts._launch_ring(mwq, mws, rk, wcen,
-                                                  ts.UNROLL, True)[2])),
+             ring(mwq, mws, rk, wcen), [mwq, mws, wcen],
+             stats_of(mwq, mws, rk, wcen), work=work),
     ]
     hb, hn = HEAD["b"], HEAD["n"]
     band_ops = DIST_FLOPS * hb * hn * 3 * ns.TB
@@ -864,7 +888,7 @@ def check_ring_equals_stream(torch, dev):
     """The reference's at-scale checks, which never ran on a TPU-less
     machine: K9 and K10 against the streaming kernel (K8) at B=4 N=16384
     with forced duplicate ties, K10 at ragged valid counts, at config 6's
-    k and at k = 100 (the wide lists against K8's passes); indices
+    k and at k = 100 (heaps of 104 keys against K8's passes); indices
     identical, distances bitwise, no invalid point returned."""
     from pytorch_points_tpu_torch.kernels import topk_scan as ts
 
@@ -971,6 +995,12 @@ def hold_against_plain(torch, case, stats):
     print(f"{name:15s} {label:52s} {verdict}  max_abs_err={err!r}  kernel "
           f"{ms!r} ms  plain {plain_ms!r} ms  bound {b_ms!r} ms ({b_by}, "
           f"{ops!r} flops)  library {lib_ms!r} ms")
+    if case.work is not None:
+        pairs = case.work(got)
+        print(f"{'':15s} work counter (equal to the plain version's): the "
+              f"kernel's visited pairs {pairs!r}, "
+              f"{pairs / max(ops / DIST_FLOPS, 1)!r} of the bound's "
+              f"{ops // DIST_FLOPS!r}")
     if name in SPLIT_KERNELS:
         dev_ms, items, mark = device_ms(torch, lambda: fn("cuda"))
         lib_dev, _, lib_mark = device_ms(torch, case.library)
@@ -1508,6 +1538,14 @@ def phase_knn(torch, dev, wrappers, masked=False):
         print(f"{cfg} median {statistics.median(times)!r} ms per call over "
               f"{len(times)} calls: {times}; equal to the plain versions; "
               f"mean k-th distance {d[..., -1].mean().item()!r}")
+        items, counted, marker = traced(
+            torch, lambda: knn(x, x, k, support_mask=mask), KNN_TRACED)
+        ring_ms, glue_ms, glue_items = ring_split(items, counted)
+        busy = ring_ms + glue_ms
+        print(f"{cfg}: {'K10' if masked else 'K9'} (box table and scan) "
+              f"{ring_ms!r} ms of {busy!r} ms device time a call, share "
+              f"{ring_ms / busy if busy else float('nan')!r}; the rest "
+              f"{glue_ms!r} ms in {glue_items!r} device items{marker}")
         if not masked:
             got = []
             counts.append(drive(
@@ -1528,6 +1566,17 @@ def phase_knn(torch, dev, wrappers, masked=False):
             return knn(x, x, k, support_mask=mask)[0].sum().item()
 
     return counts, {f"{cfg} knn B={b} N={n} k={k}": call}
+
+
+def ring_split(items, counted):
+    """(ms of the ring scan's kernels, ms of the other device items, their
+    count) a call, from :func:`traced`'s items: the box table and scan
+    kernels (names holding "knn_ring") against the glue around them."""
+    ring = [v for name, v in items.items() if "knn_ring" in name]
+    rest = [v for name, v in items.items() if "knn_ring" not in name]
+    return (sum(us for us, _ in ring) / 1e3 / counted,
+            sum(us for us, _ in rest) / 1e3 / counted,
+            sum(n for _, n in rest) / counted)
 
 
 def median_ms(torch, fn, calls):
@@ -1840,6 +1889,11 @@ def profile_path(torch, label, fn, calls=5):
     for name, (us, n) in items[:PROFILE_TOP]:
         print(f"  {us / 1e3 / counted:10.4f} ms/call {n / counted:7.1f}/call"
               f"  {name[:90]}")
+    ring_ms, glue_ms, glue_items = ring_split(dict(items), counted)
+    if ring_ms:
+        print(f"  ring kernels {ring_ms!r} ms/call; the glue around them "
+              f"{glue_items!r} device items/call, {glue_ms!r} ms/call; host "
+              f"wall minus device busy {wall - busy!r} ms/call")
 
 
 def import_port():

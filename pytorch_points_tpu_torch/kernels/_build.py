@@ -44,10 +44,10 @@ _SIGNATURES = {
     "ppt_gather_rows": [_P, _P, _I, _I, _I, _I, _P, _P],
     # qry, sup, b, nq, ns, c, k, out_d, out_i, stream
     "ppt_knn": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
-    # qry, sup, centers, b, q_pad, m_pad, k, k_pad, unroll, out_d, out_i,
-    # stats, list_d, list_i, list_f, stream
+    # qry, sup, centers, b, q_pad, m_pad, k, k_pad, unroll, boxes, out_d,
+    # out_i, counts, stats, codes, lists, stream
     "ppt_knn_ring": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                     _P, _P],
+                     _P, _P, _P],
     # idx, updates, b, k, n, c, scratch, out, stream
     "ppt_scatter_add": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     # p, q, b, n, m, out_d, out_i, stream

@@ -6,7 +6,12 @@ CUDA kernels: ``csrc/knn.cu`` replaces the TPU kernel
 scan); ``csrc/knn_ring.cu`` replaces ``::_knn_ring_kernel`` (K9),
 ``::_knn_ring_kernel_pf`` (K10: the same scan with a table of ring centres)
 and ``::_knn_ring_stats_kernel`` (the same scan with per-tile counters). The
-header notes there say what bounds them on the card.
+header notes there say what bounds them on the card. A ring call launches
+twice: the chunk-box table (:func:`ring_boxes_torch` is its plain version),
+then the scan, in which each warp of 32 sorted queries decides alone which
+chunks, and which of their sub-chunks of SUB rows, to scan; the optional
+``counts`` of the ring functions receives those decisions
+(:func:`knn_ring_torch`).
 
 :func:`knn` dispatches as the reference does: an xyz support of
 ``RING_MIN_NS`` points or more (and fewer than 2^24) takes the ring scan, or
@@ -34,7 +39,11 @@ RING_MIN_NS = 8192
 # Ids ride a float32 channel: 2^24 is the pad rows' id and caps the support.
 _IDX_RING = 2**24
 TQ = TM = 512  # ring scan: queries per tile, support rows per chunk
-_REG_LIST_MAX = 64  # the ring kernel's largest list kept in registers
+WARP = 32  # ring scan: the queries that decide a chunk's skip together
+SUB = 32  # ring scan: support rows of a sub-chunk box
+# The ring kernel keeps lists of 8 or 16 entries in registers, of up to 384
+# in a heap in shared memory, longer ones in a heap in global scratch.
+_SHARED_LIST_MAX = 384
 UNROLL = 2  # the reference's extractions per while-loop trip (counters only)
 
 
@@ -135,9 +144,29 @@ def _unpack(key: torch.Tensor):
     return d, (key & (2**26 - 1)).to(torch.int32)
 
 
+def _boxes(rows: torch.Tensor) -> torch.Tensor:
+    """[..., n, 4] -> [..., 8]: (min x, min y, min z, 1.0 if a row has the
+    pad id 2^24 else 0.0, max x, max y, max z, 0.0) over the n rows."""
+    pad = (rows[..., 3] == _IDX_RING).any(dim=-1, keepdim=True).to(
+        torch.float32)
+    return torch.cat([rows[..., :3].amin(dim=-2), pad,
+                      rows[..., :3].amax(dim=-2), torch.zeros_like(pad)], -1)
+
+
+def ring_boxes_torch(sup4: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ring scan's chunk-box table: [B,m_pad,4] ->
+    [B,m_pad/TM,1+TM/SUB,8]: each chunk's box over all its TM rows, then
+    the box of each of its sub-chunks of SUB rows (:func:`_boxes`), pad and
+    poison rows included."""
+    b = sup4.shape[0]
+    ch = sup4.reshape(b, -1, TM, 4)
+    sub = _boxes(ch.reshape(b, ch.shape[1], TM // SUB, SUB, 4))
+    return torch.cat([_boxes(ch)[:, :, None], sub], dim=2)
+
+
 def knn_ring_torch(qsp: torch.Tensor, sup4: torch.Tensor, k: int,
                    centers: torch.Tensor | None = None, unroll: int = UNROLL,
-                   stats: bool = False):
+                   stats: bool = False, counts: torch.Tensor | None = None):
     """Plain version of the ring scan on :func:`_ring_inputs`' tensors:
     (d [B,q_pad,k], id [B,q_pad,k] int32 in sorted-query order, counters
     [B,nI,2] int32 (visits, trips) or None).
@@ -149,6 +178,14 @@ def knn_ring_torch(qsp: torch.Tensor, sup4: torch.Tensor, k: int,
     with the round_up(k, 8)-entry lists by one top-k of packed (d, id) keys.
     Memory: a few [B,nI,TQ,TM] temporaries a step (0.5 GB each at B=16
     N=16384), never the [B,Nq,Ns] distance matrix (17 GB there).
+
+    ``counts`` (int32 [B, q_pad / WARP], or None) receives the kernel's work:
+    the sub-chunks of SUB rows that each warp of WARP consecutive sorted
+    queries scans. At each ring step a warp tests the chunk, and if some of
+    its queries' AABB bound is <= its worst entry, each sub-chunk against
+    the same worst entries; it scans the sub-chunks that pass. The lists do
+    not depend on where the skip is decided (a skipped box holds nothing
+    below a worst entry), so this is counted on the tile's lists.
     """
     b, q_pad, _ = qsp.shape
     ni, nj = q_pad // TQ, sup4.shape[1] // TM
@@ -166,6 +203,8 @@ def knn_ring_torch(qsp: torch.Tensor, sup4: torch.Tensor, k: int,
     never = _IDX_RING + 1  # id of a candidate that must not enter
     visits = torch.zeros((b, ni), dtype=torch.int64, device=dev)
     trips = torch.zeros_like(visits)
+    if counts is not None:
+        counts.zero_()
     col = torch.arange(TM, device=dev)
     for j in range(nj):
         off = ((j + 1) // 2) * (2 * (j % 2) - 1)
@@ -180,6 +219,8 @@ def knn_ring_torch(qsp: torch.Tensor, sup4: torch.Tensor, k: int,
         lb = (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]) + (
             g[..., 2] * g[..., 2])
         visit = (lb <= worst).any(dim=2)  # [B, nI]
+        if counts is not None:
+            counts += _warp_scans(q[..., 0, :], ch, worst)
         dx, dy, dz = (q[..., c] - pts[..., c] for c in range(3))
         d = (dx * dx + dy * dy) + dz * dz  # [B, nI, TQ, TM]
         if stats:
@@ -201,7 +242,24 @@ def knn_ring_torch(qsp: torch.Tensor, sup4: torch.Tensor, k: int,
     return d.reshape(b, q_pad, k), ids.reshape(b, q_pad, k), counters
 
 
-def _launch_ring(qsp, sup4, k, centers, unroll, stats):
+def _warp_scans(q: torch.Tensor, ch: torch.Tensor, worst: torch.Tensor):
+    """The sub-chunks of one ring step that each warp scans: q [B,nI,TQ,3],
+    ch [B,nI,TM,4] the step's chunks, worst [B,nI,TQ] -> int32
+    [B, nI*TQ/WARP]. A warp scans a sub-chunk when some of its queries has
+    AABB bound <= worst for it, in the skip test's arithmetic. (The kernel
+    tests the chunk first; a sub-chunk's bound is never below its chunk's,
+    as rounding is monotone, so that test drops no sub-chunk.)"""
+    b, ni = q.shape[:2]
+    boxes = _boxes(ch.reshape(b, ni, 1, TM // SUB, SUB, 4))
+    g = torch.clamp_min(torch.maximum(boxes[..., :3] - q[..., None, :],
+                                      q[..., None, :] - boxes[..., 4:7]), 0.0)
+    lb = (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]) + (
+        g[..., 2] * g[..., 2])  # [B, nI, TQ, TM/SUB]
+    need = (lb <= worst[..., None]).reshape(b, ni, TQ // WARP, WARP, -1)
+    return need.any(3).sum(-1).reshape(b, -1).to(torch.int32)
+
+
+def _launch_ring(qsp, sup4, k, centers, unroll, stats, counts=None):
     b, q_pad, _ = qsp.shape
     m_pad = sup4.shape[1]
     _build.require(qsp, "knn_ring query", torch.float32, (b, q_pad, 3))
@@ -213,51 +271,59 @@ def _launch_ring(qsp, sup4, k, centers, unroll, stats):
     if centers is not None:
         _build.require(centers, "knn_ring centers", torch.int32,
                        (b, q_pad // TQ))
+    if counts is not None:
+        _build.require(counts, "knn_ring counts", torch.int32,
+                       (b, q_pad // WARP))
     dev = qsp.device
     kp = _round_up(k, 8)
+    ni, nj = q_pad // TQ, m_pad // TM
     d = torch.empty((b, q_pad, k), dtype=torch.float32, device=dev)
     ids = torch.empty((b, q_pad, k), dtype=torch.int32, device=dev)
-    counters = torch.empty((b, q_pad // TQ, 2), dtype=torch.int32,
+    boxes = torch.empty((b, nj, 1 + TM // SUB, 8), dtype=torch.float32,
+                        device=dev)
+    counters = torch.empty((b, ni, 2), dtype=torch.int32,
                            device=dev) if stats else None
-    # above 64 entries each query's list lives in global scratch
-    wide = kp > _REG_LIST_MAX
-    list_d = torch.empty(b * q_pad * kp, dtype=torch.float32,
-                         device=dev) if wide else None
-    list_i = torch.empty_like(list_d, dtype=torch.int32) if wide else None
-    list_f = torch.empty_like(list_d, dtype=torch.uint8) if wide and stats \
-        else None
+    # each tile's step codes and finished-warp count (zeroed by the kernel)
+    codes = torch.empty(b * ni * (nj + 1), dtype=torch.int32,
+                        device=dev) if stats else None
+    lists = torch.empty(b * q_pad * kp, dtype=torch.int64,
+                        device=dev) if kp > _SHARED_LIST_MAX else None
     err = _ppt_knn_ring(
         qsp.data_ptr(), sup4.data_ptr(), _build.ptr(centers), b, q_pad,
-        m_pad, k, kp, unroll, d.data_ptr(), ids.data_ptr(),
-        _build.ptr(counters), _build.ptr(list_d), _build.ptr(list_i),
-        _build.ptr(list_f), _build.stream(qsp),
+        m_pad, k, kp, unroll, boxes.data_ptr(), d.data_ptr(), ids.data_ptr(),
+        _build.ptr(counts), _build.ptr(counters), _build.ptr(codes),
+        _build.ptr(lists), _build.stream(qsp),
     )
     _build.check(err, "ppt_knn_ring")
     return d, ids, counters
 
 
-def knn_ring_cuda(qsp: torch.Tensor, sup4: torch.Tensor, k: int):
+def knn_ring_cuda(qsp: torch.Tensor, sup4: torch.Tensor, k: int,
+                  counts: torch.Tensor | None = None):
     """Launch the ring kernel (K9): same contract as
-    ``knn_ring_torch(qsp, sup4, k)``."""
-    out = _launch_ring(qsp, sup4, k, None, UNROLL, False)
+    ``knn_ring_torch(qsp, sup4, k, counts=counts)``."""
+    out = _launch_ring(qsp, sup4, k, None, UNROLL, False, counts)
     knn_ring_cuda.launches += 1
     return out
 
 
 def knn_ring_masked_cuda(qsp: torch.Tensor, sup4: torch.Tensor, k: int,
-                         centers: torch.Tensor):
+                         centers: torch.Tensor,
+                         counts: torch.Tensor | None = None):
     """Launch the ring kernel with a centre table (K10): same contract as
-    ``knn_ring_torch(qsp, sup4, k, centers)``."""
-    out = _launch_ring(qsp, sup4, k, centers, UNROLL, False)
+    ``knn_ring_torch(qsp, sup4, k, centers, counts=counts)``."""
+    out = _launch_ring(qsp, sup4, k, centers, UNROLL, False, counts)
     knn_ring_masked_cuda.launches += 1
     return out
 
 
 def knn_ring_stats_cuda(qsp: torch.Tensor, sup4: torch.Tensor, k: int,
-                        unroll: int = UNROLL):
+                        unroll: int = UNROLL,
+                        counts: torch.Tensor | None = None):
     """Launch the ring kernel with counters (the stats twin): same contract
-    as ``knn_ring_torch(qsp, sup4, k, unroll=unroll, stats=True)``."""
-    out = _launch_ring(qsp, sup4, k, None, unroll, True)
+    as ``knn_ring_torch(qsp, sup4, k, unroll=unroll, stats=True,
+    counts=counts)``."""
+    out = _launch_ring(qsp, sup4, k, None, unroll, True, counts)
     knn_ring_stats_cuda.launches += 1
     return out
 

@@ -374,6 +374,64 @@ def test_knn_ring_cuda_matches_plain(dev, kind, k):
             _assert_same(got, ref)
 
 
+def _ring_with_counts(dev, qsp, sup4, k, cen=None, stats=False, unroll=2):
+    """(kernel, plain) outputs of one ring instance on the same inputs,
+    each with its work counter appended."""
+    got_c, ref_c = (torch.empty((qsp.shape[0], qsp.shape[1] // 32),
+                                dtype=torch.int32, device=dev)
+                    for _ in range(2))
+    if stats:
+        got = topk_scan.knn_ring_stats_cuda(qsp, sup4, k, unroll, got_c)
+    elif cen is not None:
+        got = topk_scan.knn_ring_masked_cuda(qsp, sup4, k, cen, got_c)
+    else:
+        got = topk_scan.knn_ring_cuda(qsp, sup4, k, got_c)
+    ref = topk_scan.knn_ring_torch(qsp, sup4, k, cen, unroll, stats, ref_c)
+    trim = 3 if stats else 2
+    return [*got[:trim], got_c], [*ref[:trim], ref_c]
+
+
+@pytest.mark.parametrize("k", [1, 8, 9, 17, 64, 65, 100, 385])
+def test_knn_ring_cuda_list_edges_and_work_counter(dev, k):
+    # the lists' edges: 8 | 9 (two register lists), 16 | 17 (registers -> a
+    # heap in shared memory), 64 | 65, 384 | 385 (-> a heap in global
+    # scratch); Nq = 3001 is no multiple of 32 or 512; ns = 9000 pads the
+    # last chunk
+    q, s = _on(dev, *_ring_cases("random", 2, 3001, 9000))
+    n_valid = torch.tensor([[9000], [5432]], device=dev)
+    sp = poison_points(s, torch.arange(9000, device=dev)[None] < n_valid,
+                       -1.0)
+    with torch.inference_mode():
+        for masked, sup in ((False, s), (True, sp)):
+            qsp, sup4, cen, _ = topk_scan._ring_inputs(q, sup, masked)
+            _assert_same(*_ring_with_counts(dev, qsp, sup4, k, cen))
+        qsp, sup4, _, _ = topk_scan._ring_inputs(q, s, False)
+        for unroll in (1, 2, 3):
+            got, ref = _ring_with_counts(dev, qsp, sup4, k, stats=True,
+                                         unroll=unroll)
+            _assert_same(got, ref)
+
+
+def test_knn_ring_cuda_one_far_query_in_a_tile(dev):
+    # one query of tile 0 moved to the far corner of the cloud: its warp
+    # alone scans more chunks, each other warp scans what it scanned before
+    q, s = _on(dev, *_ring_cases("random", 2, 2048, 16384))
+    with torch.inference_mode():
+        qsp, sup4, _, _ = topk_scan._ring_inputs(q, s, False)
+        before, ref = _ring_with_counts(dev, qsp, sup4, 16, stats=True)
+        _assert_same(before, ref)
+        qsp[:, 40] = -qsp[:, 40].sign()  # warp 1 of tile 0
+        got, ref = _ring_with_counts(dev, qsp, sup4, 16)
+        _assert_same(got, ref)
+        got, ref = _ring_with_counts(dev, qsp, sup4, 16, stats=True)
+        _assert_same(got, ref)
+    counts, counts0 = got[3], before[3]
+    others = [w for w in range(counts.shape[1]) if w != 1]
+    assert torch.equal(counts[:, others], counts0[:, others])
+    assert (counts[:, 1] > counts0[:, 1]).all()
+    assert (got[2][:, 0, 0] >= before[2][:, 0, 0]).all()
+
+
 def test_knn_ring_cuda_matches_stream_at_scale(dev):
     # the reference's at-scale cross-checks: K9 and K10 against K8 at N=16384
     x = cloud(np.random.default_rng(19), 2, 16384)

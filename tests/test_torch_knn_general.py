@@ -109,8 +109,8 @@ def test_ops_knn_k100_on_the_ring_matches_pallas(ring_at_512):
 
 
 def test_knn_ring_stats_k100_match_pallas_on_the_grid(pallas):
-    # the stats twin's counters read the list's worst entry, which k > 64
-    # moves to the wide list on the card; on the grid both sides are exact
+    # the stats twin's counters read the list's worst entry, which k > 16
+    # keeps in a heap on the card; on the grid both sides are exact
     q, s = _grid(41, 1, 512, 3), _grid(42, 1, 1536, 3)
     d, i, st = topk_scan._knn_ring_stats_call(_t(q), _t(s), 100)
     rd, ri, rst = jax_topk._knn_ring_stats_call(jnp.asarray(q),

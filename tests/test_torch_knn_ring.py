@@ -184,6 +184,123 @@ def test_knn_ring_stats_unroll_invariant_on_tie_grid():
                                       np.asarray(rst).astype(np.int32))
 
 
+def _jax_ring_support(s, masked):
+    """The reference's sorted, padded support [B, m_pad, 4] (x, y, z, id as
+    f32; far-away pad rows of id 2^24), built as ``knn_ring`` and
+    ``knn_ring_masked`` build it before their pallas_call."""
+    from pytorch_points_tpu.core.masking import BIG_COORD
+    from pytorch_points_tpu.kernels import nn_sorted as jax_sorted
+
+    s = jnp.asarray(s)
+    b, ns, _ = s.shape
+    if masked:
+        ss, perm, _ = jax_sorted.sort_by_morton_masked(
+            s, jnp.abs(s[..., 0]) < BIG_COORD)
+    else:
+        ss, perm = jax_sorted.sort_by_morton(s)
+    sup4 = jnp.concatenate([ss, perm[..., None].astype(jnp.float32)], -1)
+    padm = -(-ns // 512) * 512 - ns
+    first = ns if masked else 0
+    offs = -(BIG_COORD * 4.0
+             + 8.0 * (first + jnp.arange(padm, dtype=jnp.float32)))
+    pad = jnp.zeros((b, padm, 4), jnp.float32).at[:, :, 0].set(offs[None])
+    pad = pad.at[:, :, 3].set(float(jax_topk._IDX_RING))
+    return np.asarray(jnp.concatenate([sup4, pad], axis=1))
+
+
+@pytest.mark.parametrize("masked,ns", [(False, 1000), (False, 1536),
+                                       (True, 1300)])
+def test_ring_boxes_match_reference_chunk_aabb(masked, ns):
+    # the chunk-box table against min / max over every row of each chunk
+    # (pad and poison rows too) of the reference's own sorted, padded support
+    q, s, mask, _ = _masked_support(46, 2, 100, ns)
+    if masked:
+        s = np.asarray(jax_poison(jnp.asarray(s), jnp.asarray(mask),
+                                  sign=-1.0))
+    ref = _jax_ring_support(s, masked)
+    sup4 = topk_scan._ring_inputs(_t(q), _t(s), masked)[1]
+    np.testing.assert_array_equal(sup4.numpy(), ref)
+    boxes = topk_scan.ring_boxes_torch(_t(ref)).numpy()
+    ch = ref.reshape(2, -1, 512, 4)
+    assert boxes.shape == (2, ch.shape[1], 17, 8)
+    # the chunk's box, then its 16 sub-chunks' of 32 rows
+    for box, rows in ((boxes[:, :, 0], ch),
+                      (boxes[:, :, 1:], ch.reshape(2, -1, 16, 32, 4))):
+        np.testing.assert_array_equal(box[..., :3], rows[..., :3].min(-2))
+        np.testing.assert_array_equal(box[..., 4:7], rows[..., :3].max(-2))
+        np.testing.assert_array_equal(
+            box[..., 3], (rows[..., 3] == 2**24).any(-1).astype(np.float32))
+        assert (box[..., 7] == 0).all()
+    assert boxes[:, -1, 0, 3].all() == (ns % 512 != 0)
+
+
+def _independent_warp_scans(qsp, sup4, k):
+    """Independent count of the ring kernel's work on a support with no pad
+    rows: for each warp of 32 sorted queries, walking its tile's ring, the
+    sub-chunks of 32 rows it scans. At a ring step the warp needs a box when
+    some query's AABB bound (f32, each operation rounded alone) is <= the
+    round_up(k, 8)-th smallest distance over the chunks its warp scanned
+    before (+inf until there are that many); it scans the sub-chunks it
+    needs of a chunk it needs."""
+    b, q_pad, _ = qsp.shape
+    nj = sup4.shape[1] // 512
+    kp = -(-k // 8) * 8
+    zero = np.float32(0)
+
+    def bound(rows, q):  # [..., n, 3] rows, [32, 3] queries -> [32, ...]
+        lo, hi = rows.min(axis=-2), rows.max(axis=-2)
+        g = np.maximum(np.maximum(lo[None] - q[:, None], q[:, None] - hi[None]),
+                       zero)
+        return (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]) + (
+            g[..., 2] * g[..., 2])
+
+    out = np.zeros((b, q_pad // 32), np.int32)
+    for bi in range(b):
+        for w in range(q_pad // 32):
+            centre = ((w * 32 // 512 * 512 + 256) * nj) // q_pad
+            q = qsp[bi, w * 32:(w + 1) * 32]
+            seen = np.empty((32, 0), np.float32)
+            worst = np.full(32, np.inf, np.float32)
+            for j in range(nj):
+                off = ((j + 1) // 2) * (2 * (j % 2) - 1)
+                c = (centre + off + nj) % nj
+                ch = sup4[bi, c * 512:(c + 1) * 512, :3]
+                if not (bound(ch[None], q)[:, 0] <= worst).any():
+                    continue
+                subs = bound(ch.reshape(16, 32, 3), q)  # [32, 16]
+                out[bi, w] += (subs <= worst[:, None]).any(axis=0).sum()
+                dd = q[:, None, :] - ch[None, :, :]
+                d = (dd[..., 0] * dd[..., 0] + dd[..., 1] * dd[..., 1]) + (
+                    dd[..., 2] * dd[..., 2])
+                seen = np.concatenate([seen, d], axis=1)
+                if seen.shape[1] >= kp:
+                    worst = np.partition(seen, kp - 1, axis=1)[:, kp - 1]
+    return out
+
+
+@pytest.mark.parametrize("kind,b,nq,ns,k", [
+    ("grid", 2, 1024, 4096, 8),
+    ("clusters", 1, 700, 4096, 5),
+    ("grid", 1, 1500, 3072, 16),
+])
+def test_ring_work_counter_matches_independent_count(kind, b, nq, ns, k):
+    make = _grid_clusters if kind == "clusters" else _grid
+    qsp, sup4, _, _ = topk_scan._ring_inputs(_t(make(47, b, nq)),
+                                             _t(make(48, b, ns)), False)
+    counts = torch.empty((b, qsp.shape[1] // 32), dtype=torch.int32)
+    d, i, st = topk_scan.knn_ring_torch(qsp, sup4, k, stats=True,
+                                        counts=counts)
+    np.testing.assert_array_equal(
+        counts.numpy(), _independent_warp_scans(qsp.numpy(), sup4.numpy(), k))
+    # the same lists without the counters; the warps scan fewer sub-chunks
+    # than their tiles' visited chunks hold
+    d2, i2, _ = topk_scan.knn_ring_torch(qsp, sup4, k)
+    assert torch.equal(d, d2) and torch.equal(i, i2)
+    per_tile = counts.reshape(b, -1, 16).sum(dim=2)
+    assert (per_tile <= 16 * 16 * st[..., 0]).all()
+    assert (per_tile < 16 * 16 * st[..., 0]).any()
+
+
 def test_knn_ring_stats_on_real_clouds():
     q, s = _normal(37, 2, 300, 1536)
     d, i, st = topk_scan.knn_ring_stats(_t(q), _t(s), 8)
