@@ -15,7 +15,7 @@ Phases, in order; any failure raises and exits non-zero:
    16384 -> 2048, ball query at P=2048, group gather and backward scatters
    included), with 75%-valid masked and tie-grid
    cases: FPS, ball query, gather, kNN, dense NN (K5) and the Morton-pruned
-   band and resident NN (K6) with indices identical and values bitwise
+   band and NN scan (K6) with indices identical and values bitwise
    equal, K6 also against K5 on the same clouds; the scatter (K4) bitwise
    equal to its plain version run on the CPU (which sums in ascending k, as
    K4 does) and across two launches, and within the bound of two f32
@@ -41,7 +41,16 @@ Phases, in order; any failure raises and exits non-zero:
    that emits centred coordinates at the serve and headline shapes and on a
    75%-valid mask with a zero-hit row whose point 0 is masked; the worklist NN on the pruned NN's own
    inputs (B=32 N=16384, q a shuffle of p) and on a tie grid with a random
-   candidate mask; the older-layout gather at its test shape; the repairs:
+   candidate mask; the older-layout gather at its test shape; FPS (K1)
+   at each shape with the step floor on the block it runs on (clock64
+   around empty steps) and the latency bound it gives (k x floor); K6's NN
+   scan, which decides its own candidates, on the headline's clouds and
+   the masked headline's, its candidate mask (``cand_out``) bitwise equal
+   to ``_cand_mask`` and its counters (candidate tiles, tiles its warps
+   visit) to the plain version's, with its bound (the (row, tile) pairs
+   each row's own candidate test passes, and every row's box tests), the
+   tile-level bounds the earlier scan was held to, and the time of the
+   reference's candidate mask in torch ops on the card; the repairs:
    K8 at k = 65 and 128 (passes of 64), K9 and K10 at k = 100 (the wide
    list), the any-C streaming scan at config 7's feature widths C = 24 and
    96, and K11 with 9 phases (two chained launches). Kernel and
@@ -70,6 +79,7 @@ Phases, in order; any failure raises and exits non-zero:
    Morton-pruned chamfer, forward and backward at B=32 (the JAX package's
    graded headline loss); value and grad must match the plain versions, for
    the loss and for its group term alone (which the loss weighs by 1e-6);
+   then K1's and K6's shares of one traced call's device time;
 6. EMD (config 4): earth_mover_distance on B=32 N=2048 standard-normal
    clouds, timed; then its excess over the Hungarian optimum (scipy) on 4
    normal and 4 gaussian-mixture pairs at pop caps 768 and 384. Every
@@ -86,8 +96,10 @@ Phases, in order; any failure raises and exits non-zero:
 9. config 6m: the same kNN with 75% prefix-valid support masks (the masked
    ring path); no invalid point returned; K10's share of the device time;
 10. masked headline: phase 5 on 75% prefix-valid clouds (p_mask = q_mask),
-   the chamfer on the "sorted_masked" path (K7 band, candidate mask, K6
-   resident scan), with each direction's share of candidate tile pairs;
+   the chamfer on the "sorted_masked" path (K7 band, then K6's scan, which
+   tests its own candidates), with each direction's share of candidate
+   tile pairs and of (warp, tile) pairs the scan visits, and K1's and K6's
+   shares of the device time;
 11. fused SA front half: ``_bq_group_centered`` forward and backward at the
    serve shape (B=16 N=2048 P=512) and the headline's (B=32 N=16384
    P=2048, FPS centroids): idx and cnt equal to ``ball_query``'s, the
@@ -165,6 +177,9 @@ PRUNED_CALLS = 5
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # float32 outside the tensor cores
 DIST_FLOPS = 8  # one squared distance: 3 subtract, 3 multiply, 2 add
+# K6's candidate test of one (row, tile box): 6 subtract, 6 max, 3 + 1
+# multiply, 2 add
+CAND_TEST_FLOPS = 18
 KNN_WIDE_K = (65, 128)  # K8 past one pass of 64
 RING_WIDE_K = 100  # K9/K10 past the register lists
 RING_CONFIG6_K = (1, 64, 65)  # K9 at config 6: the lists' other forms
@@ -198,7 +213,8 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "nn_band_dynamic": ("pytorch_points_tpu_torch/csrc/nn_sorted.cu",
                         "pytorch_points_tpu/kernels/nn_sorted.py:242"),
     "nn_resident": ("pytorch_points_tpu_torch/csrc/nn_sorted.cu",
-                    "pytorch_points_tpu/kernels/nn_sorted.py:387"),
+                    "pytorch_points_tpu/kernels/nn_sorted.py:387 with "
+                    "_cand_mask :316"),
     "knn_ring": ("pytorch_points_tpu_torch/csrc/knn_ring.cu",
                  "pytorch_points_tpu/kernels/topk_scan.py:268"),
     "knn_ring_masked": ("pytorch_points_tpu_torch/csrc/knn_ring.cu",
@@ -306,14 +322,16 @@ class Case:
     which the kernel's output must equal bitwise, or None; ``work`` a
     function of the kernel's outputs giving the distance pairs the kernel
     itself computed (its work counter), printed beside the bound's, or
-    None."""
+    None; ``note`` a function of the kernel's outputs and ms giving a line
+    of the case's own figures (K1's step floor and latency bound, K6's
+    counters and bounds), or None."""
 
     def __init__(self, name, label, fn, inputs, ops=0, library=None,
-                 bound=None, cpu=None, work=None):
+                 bound=None, cpu=None, work=None, note=None):
         self.name, self.label, self.fn = name, label, fn
         self.inputs, self.ops, self.library, self.bound = (
             inputs, ops, library, bound)
-        self.cpu, self.work = cpu, work
+        self.cpu, self.work, self.note = cpu, work, note
 
 
 def nbytes(tensors):
@@ -452,6 +470,29 @@ def bq_ops(torch, xyz, cen, radius, nsample, mask=None):
     return DIST_FLOPS * pairs
 
 
+def fps_cases(torch, tag, xyz, k, mask=None):
+    """K1 on ``xyz``, noting the step floor on the block the wrapper takes
+    and the latency bound it gives (k steps at the floor)."""
+    from pytorch_points_tpu_torch.kernels import fps
+
+    b, n = xyz.shape[:2]
+    ops = DIST_FLOPS * b * n * k
+    inputs = [xyz] if mask is None else [xyz, mask]
+
+    def note(got, ms):
+        cycles, ns = fps.fps_step_floor(n)
+        form = ("one block a cloud" if n <= fps.BLOCK_POINTS
+                else "the streaming kernel")
+        return (f"K1 on {form}; step floor {cycles!r} cycles = {ns!r} ns; "
+                f"latency bound k x floor {k * ns * 1e-6!r} ms; kernel "
+                f"{ms * 1e6 / k!r} ns a step")
+
+    return [Case("fps", f"{tag} k={k}",
+                 lambda impl: fps.furthest_point_sample(xyz, k, mask,
+                                                        impl=impl),
+                 inputs, ops, note=note)]
+
+
 def kernel_cases(torch, rng, dev):
     """Cases at the serving path's shapes."""
     from pytorch_points_tpu_torch.kernels import (
@@ -480,11 +521,8 @@ def kernel_cases(torch, rng, dev):
                     ballquery.ball_query_and_group_coords(
                         x, c, RADIUS1, NSAMPLE, impl=impl)),
                 [xyz, cen], bq_ops(torch, xyz, cen, RADIUS1, NSAMPLE)))
+        cases += fps_cases(torch, f"sa1 {tag}", xyz, NPOINT1)
         cases += [
-            Case("fps", f"sa1 {tag} k={NPOINT1}",
-                 lambda impl, x=xyz: fps.furthest_point_sample(
-                     x, NPOINT1, impl=impl),
-                 [xyz], DIST_FLOPS * b * n * NPOINT1),
             Case("ball_query", f"sa1 {tag} P={NPOINT1} r={RADIUS1}",
                  lambda impl, x=xyz, c=cen: ballquery.ball_query(
                      x, c, RADIUS1, NSAMPLE, impl=impl),
@@ -527,10 +565,6 @@ def kernel_cases(torch, rng, dev):
         Case("gather", "older layout (gather.py:32) B2 N=300 K=500 C=3",
              lambda impl: gather.gather_rows_t(f300, i300, impl=impl),
              [f300, i300], library=gather_call(torch, f300, i300)),
-        Case("fps", "sa1 B16_N2048 75%-valid mask",
-             lambda impl: fps.furthest_point_sample(xyz, NPOINT1, mask,
-                                                    impl=impl),
-             [xyz, mask], DIST_FLOPS * b * n * NPOINT1),
         Case("ball_query", "sa1 B16_N2048 75%-valid mask",
              lambda impl: ballquery.ball_query(xyz, cen, RADIUS1, NSAMPLE,
                                                mask, impl=impl),
@@ -543,6 +577,9 @@ def kernel_cases(torch, rng, dev):
         Case("gather", f"sa2 features B16 K={NPOINT2 * NSAMPLE} C=128",
              lambda impl: gather.gather_rows(f1, flat2, impl=impl),
              [f1, flat2], library=gather_call(torch, f1, flat2)),
+        *fps_cases(torch, "sa1 B16_N2048 75%-valid mask", xyz, NPOINT1,
+                   mask),
+        *fps_cases(torch, f"sa2 B16 N={NPOINT1}", xyz2, NPOINT2),
         Case("knn", f"fp2 B16 Nq={NPOINT1} Ns={NPOINT2} k=3",
              lambda impl: grouping.knn(xyz2, cen2, 3, impl=impl),
              [xyz2, cen2], DIST_FLOPS * b * NPOINT1 * NPOINT2),
@@ -576,6 +613,78 @@ def scatter_bound(torch, idx, upd, n):
     count = scatter.scatter_add(idx, torch.ones_like(upd), n, impl="torch")
     abs_sum = scatter.scatter_add(idx, upd.abs(), n, impl="torch")
     return torch.where(count > 1, 2 * count * SUM_ORDER_EPS * abs_sum, 0.0)
+
+
+def k6_cases(torch, tag, ps, qs, qid, d_ub, bare=True):
+    """K6's NN scan on sorted, padded clouds with bounds ``d_ub``: the bare
+    call (the main paths' form, timed first) unless ``bare`` is False, and
+    the call with ``cand_out`` and ``counts``, whose mask and counters must
+    equal the plain version's. The bound counts the work the output needs,
+    whatever computes it: the (row, q-tile) pairs each row's own candidate
+    test passes, TM distances each, and every row's test against every
+    tile box. Each case notes it beside the tile-level bounds the earlier
+    scan was held to (every row of a block against each of the block's
+    candidate tiles: the scan alone, and with the box tests), the candidate
+    tiles, the tiles the kernel's warps visit, and the time of the
+    reference's candidate mask in torch ops on the card (the earlier
+    scan's glue)."""
+    from pytorch_points_tpu_torch.kernels import nn_sorted as ns
+
+    b, n = ps.shape[:2]
+    m = qs.shape[1]
+    ni, nj = n // ns.TN, m // ns.TM
+    cand = ns._cand_mask(ps, qs, d_ub, ns.FT, ns.TN, ns.TM)
+    tiles = cand.sum().item()
+    row_tiles = ns._cand_rows(ps, qs, d_ub, ns.TM, ns.TN, ns.TM,
+                              1).sum().item()
+    mask_ms = cuda_ms(torch, lambda: ns._cand_mask(ps, qs, d_ub, ns.FT,
+                                                   ns.TN, ns.TM))
+    tile_pairs = ns.TN * ns.TM * tiles
+    row_pairs = ns.TM * row_tiles
+    test_ops = CAND_TEST_FLOPS * b * n * nj
+    ops = DIST_FLOPS * row_pairs + test_ops
+    inputs = [ps, qs, qid, d_ub]
+    io = nbytes(inputs) + 8 * b * n  # and d, id written
+
+    def note(got, ms):
+        counts = torch.zeros((b, ni, 2), dtype=torch.int32, device=ps.device)
+        ns.nn_scan(ps, qs, qid, d_ub, counts=counts)
+        visits = counts[..., 1].sum().item()
+        pairs = visits * ns.SCAN_WARP_ROWS * ns.TM
+        tile_ops = DIST_FLOPS * tile_pairs
+        return (f"K6 candidate tiles {tiles} ({tiles / (b * ni * nj)!r} of "
+                f"all); rows' own candidate pairs {row_pairs} "
+                f"({row_pairs / tile_pairs!r} of the tile-level pairs); "
+                f"warp tile visits {visits} ({pairs} pairs, "
+                f"{pairs / tile_pairs!r} of the tile-level pairs, "
+                f"{pairs / max(row_pairs, 1)!r} times the rows' own); bound "
+                f"{bound_ms(io, ops)[0]!r} ms; tile-level bounds (the "
+                f"earlier scan's): scan {bound_ms(io, tile_ops)[0]!r} ms, "
+                f"with the box tests {bound_ms(io, tile_ops + test_ops)[0]!r}"
+                f" ms; the candidate mask in torch ops on the card "
+                f"{mask_ms!r} ms")
+
+    def with_counters(impl):
+        counts = torch.zeros((b, ni, 2), dtype=torch.int32, device=ps.device)
+        cand_out = torch.zeros((b, ni, nj), dtype=torch.bool,
+                               device=ps.device)
+        d, i = ns.nn_scan(ps, qs, qid, d_ub, cand_out=cand_out,
+                          counts=counts, impl=impl)
+        if not torch.equal(cand_out, cand):
+            fail(f"nn_resident [{tag}]: cand_out ({impl}) differs from "
+                 "_cand_mask")
+        return d, i, counts, cand_out
+
+    cases = []
+    if bare:
+        cases.append(Case(
+            "nn_resident", f"{tag} tn=512 tm=64",
+            lambda impl: ns.nn_scan(ps, qs, qid, d_ub, impl=impl), inputs,
+            ops, note=note))
+    cases.append(Case(
+        "nn_resident", f"{tag} with cand_out and counts", with_counters,
+        inputs, ops, note=note))
+    return cases
 
 
 def training_kernel_cases(torch, rng, dev):
@@ -620,10 +729,6 @@ def training_kernel_cases(torch, rng, dev):
     qs, perm_q = nn_sorted.sort_by_morton(hq)
     d_ub = nn_sorted.band_min(ps, qs, tb=nn_sorted.TB, tbq=nn_sorted.TBQ,
                               stride=nn_sorted.STRIDE, impl="torch")
-    cand = nn_sorted._cand_mask(ps, qs, d_ub, nn_sorted.FT, nn_sorted.TN,
-                                nn_sorted.TM)
-    print(f"K6 at B={hb} N=M={hn}: candidate tile pairs "
-          f"{cand.float().mean().item()!r} of all")
     cases += [
         Case("nn_band", f"headline B{hb} N=M={hn} tbq=128 stride=4",
              lambda impl: nn_sorted.band_min(
@@ -631,12 +736,17 @@ def training_kernel_cases(torch, rng, dev):
                  stride=nn_sorted.STRIDE, impl=impl),
              [ps, qs[:, ::nn_sorted.STRIDE]],
              DIST_FLOPS * hb * hn * 3 * nn_sorted.TBQ),
-        Case("nn_resident", f"headline B{hb} N=M={hn} tn=512 tm=64",
-             lambda impl: nn_sorted.nn_resident(ps, qs, perm_q, cand,
-                                                impl=impl),
-             [ps, qs, perm_q, cand], DIST_FLOPS * nn_sorted.TN
-             * nn_sorted.TM * cand.sum().item()),
+        *k6_cases(torch, f"headline B{hb} N=M={hn}", ps, qs, perm_q, d_ub),
     ]
+    # the masked headline's p->q direction, as nndistance_indexed_masked
+    # gives it to the scan (poisoned rows at -1)
+    mps, mgs, c1, _, _, _ = masked_head_clouds(torch, dev)
+    m_ub = torch.where(mps[..., 0].abs() < 2.0e4,
+                       nn_sorted.band_min_dynamic(mps, mgs, c1, impl="torch"),
+                       -1.0)
+    m_ids = torch.arange(hn, dtype=torch.int32, device=dev).expand(hb, hn)
+    cases += k6_cases(torch, f"masked headline B{hb} N=M={hn} p->q", mps,
+                      mgs, m_ids, m_ub, bare=False)
 
     xyz = t(cloud(rng, b, n))
     cen = fps.furthest_point_sample(xyz, NPOINT1, impl="torch")[1]
@@ -660,10 +770,8 @@ def training_kernel_cases(torch, rng, dev):
     hidx = ballquery.ball_query(hp, hc, RADIUS1, NSAMPLE,
                                 impl="torch")[0].reshape(hb, -1)
     hk = hidx.shape[1]
+    cases += fps_cases(torch, f"headline B{hb} N={hn}", hp, HEAD["p"])
     cases += [
-        Case("fps", f"headline B{hb} N={hn} k={HEAD['p']}",
-             lambda impl: fps.furthest_point_sample(hp, HEAD["p"], impl=impl),
-             [hp], DIST_FLOPS * hb * hn * HEAD["p"]),
         Case("ball_query", f"headline B{hb} N={hn} P={HEAD['p']} r={RADIUS1}",
              lambda impl: ballquery.ball_query(hp, hc, RADIUS1, NSAMPLE,
                                                impl=impl),
@@ -1001,6 +1109,8 @@ def hold_against_plain(torch, case, stats):
               f"kernel's visited pairs {pairs!r}, "
               f"{pairs / max(ops / DIST_FLOPS, 1)!r} of the bound's "
               f"{ops // DIST_FLOPS!r}")
+    if case.note is not None:
+        print(f"{'':15s} {case.note(got, ms)}")
     if name in SPLIT_KERNELS:
         dev_ms, items, mark = device_ms(torch, lambda: fn("cuda"))
         lib_dev, _, lib_mark = device_ms(torch, case.library)
@@ -1400,19 +1510,45 @@ def headline_terms(pred, gt, impl, pm=None, gm=None):
 
 
 def masked_candidate_shares(torch, dev):
-    """Each direction's share of candidate tile pairs on the masked
-    headline's clouds, as nndistance_indexed_masked builds them."""
+    """Each direction's (share of candidate tile pairs, share of (warp,
+    tile) pairs the scan's warps visit) on the masked headline's clouds, as
+    nndistance_indexed_masked gives them to the scan, from its counters."""
     from pytorch_points_tpu_torch.kernels import nn_sorted as ns
 
     ps, gs, c1, c2, _, _ = masked_head_clouds(torch, dev)
     shares = []
     with torch.inference_mode():
         for a, o, c in ((ps, gs, c1), (gs, ps, c2)):
+            b, n = a.shape[:2]
+            m = o.shape[1]
             valid = a[..., 0].abs() < 2.0e4
             d_ub = torch.where(valid, ns.band_min_dynamic(a, o, c), -1.0)
-            cand = ns._cand_mask(a, o, d_ub, ns.FT, ns.TN, ns.TM)
-            shares.append(cand.float().mean().item())
+            counts = torch.zeros((b, n // ns.TN, 2), dtype=torch.int32,
+                                 device=dev)
+            ids = torch.arange(m, dtype=torch.int32, device=dev).expand(b, m)
+            ns.nn_scan(a, o, ids, d_ub, counts=counts)
+            nj = m // ns.TM
+            shares.append((counts[..., 0].sum().item() / (b * n // ns.TN * nj),
+                           counts[..., 1].sum().item()
+                           / (b * n // ns.SCAN_WARP_ROWS * nj)))
     return shares
+
+
+def headline_shares(torch, what, call):
+    """K1's and K6's (box table and scan) device ms in one traced call of
+    the headline, and their shares of its device busy."""
+    items, counted, marker = traced(torch, call, 2)
+    busy = sum(us for us, _ in items.values()) / 1e3 / counted
+
+    def ms(*keys):
+        return sum(us for name, (us, _) in items.items()
+                   if any(k in name for k in keys)) / 1e3 / counted
+
+    k1 = ms("fps_block_kernel", "fps_stream_kernel")
+    k6 = ms("nn_scan_kernel", "nn_boxes_kernel")
+    print(f"{what}: device busy {busy!r} ms a call; K1 {k1!r} ms (share "
+          f"{k1 / busy!r}), K6 scan with its box launch {k6!r} ms (share "
+          f"{k6 / busy!r}){marker}")
 
 
 def phase_headline(torch, dev, wrappers, masked=False):
@@ -1438,8 +1574,10 @@ def phase_headline(torch, dev, wrappers, masked=False):
     if path != want:
         fail(f"{what}: chamfer took the {path} path, not {want}")
     if masked:
-        s1, s2 = masked_candidate_shares(torch, dev)
-        print(f"candidate tile pairs, share of all: p->q {s1!r}, q->p {s2!r}")
+        (s1, w1), (s2, w2) = masked_candidate_shares(torch, dev)
+        print(f"candidate tile pairs, share of all: p->q {s1!r}, q->p {s2!r};"
+              f" (warp, tile) pairs the scan visits: p->q {w1!r}, q->p "
+              f"{w2!r}")
 
     def values_and_grads(impl):
         """(loss, group term) and their grads in pred. The loss weighs the
@@ -1490,6 +1628,7 @@ def phase_headline(torch, dev, wrappers, masked=False):
     print(f"{what} median {statistics.median(times)!r} ms per call "
           f"(value and grad) over {len(times)} calls: {times}; peak device "
           f"memory {torch.cuda.max_memory_allocated(dev)} bytes")
+    headline_shares(torch, what, call)
     return [launches], {f"{what} B={b} N={n} P={p}": call}
 
 
@@ -1921,7 +2060,7 @@ def import_port():
                 "nn_worklist": distance_tiles.run_worklist_cuda,
                 "nn_band": nn_sorted.band_min_cuda,
                 "nn_band_dynamic": nn_sorted.band_min_dynamic_cuda,
-                "nn_resident": nn_sorted.nn_resident_cuda,
+                "nn_resident": nn_sorted.nn_scan_cuda,
                 "knn_ring": topk_scan.knn_ring_cuda,
                 "knn_ring_masked": topk_scan.knn_ring_masked_cuda,
                 "knn_ring_stats": topk_scan.knn_ring_stats_cuda,

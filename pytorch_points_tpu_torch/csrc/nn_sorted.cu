@@ -1,12 +1,13 @@
 // Morton-pruned nearest neighbour (one direction per launch): the band pass
-// that bounds each point's NN distance from above, and the NN scan over the
-// candidate tile pairs that the bound leaves.
+// that bounds each point's NN distance from above, and the NN scan, which
+// decides its own candidate tiles from those bounds and scans them.
 //
 // Replaces the TPU kernels pytorch_points_tpu/kernels/nn_sorted.py::
-// _band_kernel (band_min) and ::_nn_resident_kernel (_run_resident with
-// tie_orig=True). Both clouds arrive Morton-sorted and padded by the
-// wrapper (kernels/nn_sorted.py), which also builds the candidate mask
-// from the band's bounds in torch ops, as the JAX package does in XLA.
+// _band_kernel (:151, band_min) and ::_nn_resident_kernel (:387,
+// _run_resident with tie_orig=True), together with the candidate mask the
+// reference builds in XLA in front of the latter (_cand_mask, :316). Both
+// clouds arrive Morton-sorted and padded by the wrapper
+// (kernels/nn_sorted.py).
 //
 // Band (nn_band_kernel). For p-tile i of tb sorted points, the minimum
 // squared distance over three consecutive tiles of tbq points of the
@@ -19,28 +20,48 @@
 // unsound. One block per p-tile stages its three windows (9 tbq floats) in
 // shared memory; bound by the distance arithmetic, 3 tbq pairs per point.
 //
-// Resident NN (nn_resident_kernel). One block per (cloud, p-tile of tn
-// sorted rows), one thread per row. Warp 0 compacts the block's row of the
-// [B, nI, nJ] candidate mask into a list of q-tiles (ascending j) in shared
-// memory; the block then stages tn / tm candidate tiles at a time (coords
-// and ORIGINAL index, a float4 per point) and each thread folds them with
-// d < best || (d == best && id < best_id): the lexicographic minimum of
-// (d, original index), the reference's lowest-original-index tie rule
-// (nn_sorted.py:445-450). Every tile that holds a point at the NN distance
-// passes the bound, so the result equals the dense scan (K5) on the
-// original clouds, distances and indices bitwise. Rows with no candidate
-// keep (inf, 2^30), the reference's sentinel; they are padding.
+// NN scan (nn_boxes_kernel, then nn_scan_kernel). The candidate set is the
+// reference's: q-tile J (tm points) is scanned for p-tile I (tn rows) if
+// some row r of I has lb(r, J) * (1 - 1e-5) <= d_ub[r], lb being the
+// squared gap from r to the AABB of J's points (pad and poison rows
+// included), per axis max(lo - p, p - hi) clamped at 0, squared, summed x,
+// y, z in that order, each operation rounded alone, exactly as _cand_mask
+// computes it in torch ops (fine sub-tiles of ft = tm points, so one box a
+// tile). The first launch writes each tile's box and a packed copy of q,
+// (x, y, z, original id) a float4 a point, once a cloud. The scan then
+// takes one block a (cloud, p-tile), 32 rows a warp (one a lane):
+//  * each warp tests its rows against every box (boxes staged in shared
+//    memory, 256 at a time) and ballots, giving its own bitmask of tiles;
+//    the block's mask (their OR) is the reference's candidate row, written
+//    on request (cand_out) with the counters (counts: the block's tiles
+//    and the tiles its warps visit);
+//  * a warp then scans only the tiles its own rows pass, ascending, with
+//    no block barrier: double-buffered cp.async stages the next tile while
+//    the lanes fold this one, each staged float4 read as a broadcast. This
+//    is exact: every q point at a row's NN distance lies in a tile whose
+//    lb is at most that distance (the gap is a rounded subtraction of the
+//    same operands as the distance's, and rounding is monotone), and the
+//    NN distance is at most d_ub, so the row's own test keeps every tile
+//    that holds it. Other tiles of the block's mask only hold points
+//    farther away, so the fold, a lexicographic minimum of (d^2, original
+//    index) as one 64-bit key, ends where the reference's does, in any
+//    order of tiles. Rows with a negative bound (padding, poison) pass no
+//    tile and come out as (inf, 2^30); the callers drop them.
 //
 // No worklist budget. The TPU kernel runs a static fori_loop over a
 // compacted pair list of static size (_compact_pairs, _BUDGET_FRAC), so it
-// needs a budget and, past it, a lax.cond to the dense kernel. Reading the
-// mask directly, a block visits exactly its own candidates, of any number,
-// so neither the budget nor the fallback exists here.
+// needs a budget and, past it, a lax.cond to the dense kernel, and the
+// candidate mask as a separate XLA step. Here a warp visits exactly its own
+// candidates, of any number, and the mask is never materialised: the
+// torch glue that built it took [B, nI, 512, nJ] f32 temporaries (0.5 GB
+// each at B=32 N=16384) and most of the headline's device time.
 //
-// On the card: bound by the distance arithmetic of the candidate pairs
-// (about a quarter of all pairs on uniform clouds); each staged tile is
-// read by every thread as a shared-memory broadcast. Blocks of one cloud
-// see different candidate counts, so the tail of a launch is uneven.
+// What bounds the scan on the card: issue, about 12 instructions a visited
+// (row, point) pair (8 rounded operations for the distance, a 64-bit
+// compare and two selects), since the f32 distances may not be contracted
+// into FMAs. The design cuts the pairs (per-warp tiles: a third of the
+// block-level pairs on uniform clouds) rather than the instructions a
+// pair. The candidate test adds about 15 operations a (row, tile).
 #include <math.h>
 
 #include "common.cuh"
@@ -83,73 +104,227 @@ __global__ void __launch_bounds__(kBandThreads)
   }
 }
 
-__global__ void __launch_bounds__(1024)
-    nn_resident_kernel(const float* __restrict__ ps,
-                       const float* __restrict__ qs,
-                       const int* __restrict__ qid,
-                       const uint8_t* __restrict__ cand, int ni, int nj,
-                       int tm, float* __restrict__ out_d,
-                       int* __restrict__ out_i) {
-  extern __shared__ float4 stage[];  // blockDim.x points, then the list
-  int* list = reinterpret_cast<int*>(stage + blockDim.x);
-  __shared__ int s_count;
-  const int tn = blockDim.x;
-  const int ti = blockIdx.x;
-  const int b = blockIdx.y;
-  const size_t mp = static_cast<size_t>(nj) * tm;
-  const size_t row = (static_cast<size_t>(b) * ni + ti) * tn + threadIdx.x;
-  const float px = ps[3 * row], py = ps[3 * row + 1], pz = ps[3 * row + 2];
+// The candidate test's f32 factor: float(1.0 - 1e-5), the constant torch
+// and JAX use when they multiply an f32 tensor by that Python float.
+constexpr float kLbScale = 0x1.fffeb0p-1f;
+constexpr unsigned long long kNoNeighbour =
+    (static_cast<unsigned long long>(0x7f800000u) << 32) | kSentinel;
+constexpr int kBoxChunk = 256;  // boxes staged in shared memory at a time
+constexpr unsigned kFull = 0xffffffffu;
 
-  if (threadIdx.x < 32) {  // warp 0: candidate q-tiles, ascending j
-    const uint8_t* crow = cand + (static_cast<size_t>(b) * ni + ti) * nj;
-    const unsigned lane = threadIdx.x;
-    int count = 0;
-    for (int base = 0; base < nj; base += 32) {
-      const int j = base + static_cast<int>(lane);
-      const bool hit = j < nj && crow[j] != 0;
-      const unsigned ballot = __ballot_sync(0xffffffffu, hit);
-      if (hit) list[count + __popc(ballot & ((1u << lane) - 1u))] = j;
-      count += __popc(ballot);
-    }
-    if (lane == 0) s_count = count;
+// Box of each q-tile (tm points) and the packed q: packed[b, r] = (x, y, z,
+// original id as bits); boxes[b, j] = (lo x, y, z, 0), (hi x, y, z, 0). A
+// warp a tile.
+__global__ void __launch_bounds__(256)
+    nn_boxes_kernel(const float* __restrict__ qs, const int* __restrict__ qid,
+                    int b, int nj, int tm, float4* __restrict__ packed,
+                    float4* __restrict__ boxes) {
+  const int lane = threadIdx.x & 31;
+  const long long tile =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (tile >= static_cast<long long>(b) * nj) return;
+  float lx = INFINITY, ly = INFINITY, lz = INFINITY;
+  float hx = -INFINITY, hy = -INFINITY, hz = -INFINITY;
+  for (int r = lane; r < tm; r += 32) {
+    const size_t row = static_cast<size_t>(tile) * tm + r;
+    const float x = qs[3 * row], y = qs[3 * row + 1], z = qs[3 * row + 2];
+    packed[row] = make_float4(x, y, z, __int_as_float(qid[row]));
+    lx = fminf(lx, x);
+    ly = fminf(ly, y);
+    lz = fminf(lz, z);
+    hx = fmaxf(hx, x);
+    hy = fmaxf(hy, y);
+    hz = fmaxf(hz, z);
   }
-  __syncthreads();
-  const int count = s_count;
-  const int per_stage = tn / tm;
-  const float* qb = qs + static_cast<size_t>(b) * mp * 3;
-  const int* idb = qid + static_cast<size_t>(b) * mp;
-  float best = INFINITY;
-  int best_i = kSentinel;
-  for (int s = 0; s < count; s += per_stage) {
-    const int len = min(per_stage, count - s) * tm;
-    if (static_cast<int>(threadIdx.x) < len) {
-      const size_t src = static_cast<size_t>(list[s + threadIdx.x / tm]) * tm +
-                         threadIdx.x % tm;
-      stage[threadIdx.x] = make_float4(qb[3 * src], qb[3 * src + 1],
-                                       qb[3 * src + 2],
-                                       __int_as_float(idb[src]));
-    }
-    __syncthreads();
-    for (int u = 0; u < len; ++u) {
-      const float4 v = stage[u];
-      const float d = ppt::sqdist3(v.x, v.y, v.z, px, py, pz);
-      const int id = __float_as_int(v.w);
-      if (d < best || (d == best && id < best_i)) {
-        best = d;
-        best_i = id;
-      }
-    }
-    __syncthreads();
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lx = fminf(lx, __shfl_xor_sync(kFull, lx, off));
+    ly = fminf(ly, __shfl_xor_sync(kFull, ly, off));
+    lz = fminf(lz, __shfl_xor_sync(kFull, lz, off));
+    hx = fmaxf(hx, __shfl_xor_sync(kFull, hx, off));
+    hy = fmaxf(hy, __shfl_xor_sync(kFull, hy, off));
+    hz = fmaxf(hz, __shfl_xor_sync(kFull, hz, off));
   }
-  out_d[row] = best;
-  out_i[row] = best_i;
+  if (lane == 0) {
+    boxes[2 * tile] = make_float4(lx, ly, lz, 0.f);
+    boxes[2 * tile + 1] = make_float4(hx, hy, hz, 0.f);
+  }
 }
 
+// The reference's candidate test of one row against one box.
+__device__ __forceinline__ bool passes(float px, float py, float pz,
+                                       float dub, float4 lo, float4 hi) {
+  const float gx = fmaxf(fmaxf(__fsub_rn(lo.x, px), __fsub_rn(px, hi.x)), 0.f);
+  const float gy = fmaxf(fmaxf(__fsub_rn(lo.y, py), __fsub_rn(py, hi.y)), 0.f);
+  const float gz = fmaxf(fmaxf(__fsub_rn(lo.z, pz), __fsub_rn(pz, hi.z)), 0.f);
+  const float lb = __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)),
+                             __fmul_rn(gz, gz));
+  return __fmul_rn(lb, kLbScale) <= dub;
+}
+
+// First set bit at or after `from` in the warp's tile mask; nj if none.
+__device__ __forceinline__ int next_tile(const unsigned* mask, int words,
+                                         int nj, int from) {
+  for (int w = from >> 5; w < words; ++w) {
+    unsigned bits = mask[w];
+    if (w == (from >> 5)) bits &= ~0u << (from & 31);
+    if (bits) return w * 32 + __ffs(bits) - 1;
+  }
+  return nj;
+}
+
+// Stage tile j's tm packed points at the shared address dst (16-byte
+// cp.async, tm / 32 a lane), then commit them as one group.
+__device__ __forceinline__ void stage_tile(unsigned dst, const float4* src,
+                                           int tm, int lane) {
+  for (int r = lane; r < tm; r += 32)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     dst + r * 16),
+                 "l"(src + r));
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float4 lds128(unsigned addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// One block a (p-tile, cloud), blockDim.x = tn threads, a row a thread.
+// Shared memory: the staged boxes (2 kBoxChunk float4), each warp's tile
+// mask (words unsigned), each warp's two stage buffers (tm float4 each).
+__global__ void __launch_bounds__(1024)
+    nn_scan_kernel(const float* __restrict__ ps,
+                   const float* __restrict__ d_ub,
+                   const float4* __restrict__ packed,
+                   const float4* __restrict__ boxes, int ni, int nj, int tm,
+                   float* __restrict__ out_d, int* __restrict__ out_i,
+                   uint8_t* __restrict__ cand_out, int* __restrict__ counts) {
+  extern __shared__ float4 smem4[];
+  __shared__ int s_tiles, s_visits;
+  const int tn = blockDim.x;
+  const int warps = tn >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int words = (nj + 31) >> 5;
+  float4* box_lo = smem4;
+  float4* box_hi = smem4 + kBoxChunk;
+  unsigned* masks = reinterpret_cast<unsigned*>(smem4 + 2 * kBoxChunk);
+  unsigned* mine = masks + warp * words;
+  float4* stage = smem4 + 2 * kBoxChunk + (warps * words + 3) / 4 +
+                  static_cast<size_t>(warp) * 2 * tm;
+  const int ti = blockIdx.x;
+  const int b = blockIdx.y;
+  const size_t row = (static_cast<size_t>(b) * ni + ti) * tn + threadIdx.x;
+  const float px = ps[3 * row], py = ps[3 * row + 1], pz = ps[3 * row + 2];
+  const float dub = d_ub[row];
+  const float4* bb = boxes + static_cast<size_t>(b) * nj * 2;
+
+  // candidate test: this warp's tiles
+  if (threadIdx.x == 0) s_tiles = s_visits = 0;
+  for (int c0 = 0; c0 < nj; c0 += kBoxChunk) {
+    const int cnt = min(kBoxChunk, nj - c0);
+    __syncthreads();  // the chunk before is no longer read
+    for (int e = threadIdx.x; e < cnt; e += tn) {
+      box_lo[e] = bb[2 * (c0 + e)];
+      box_hi[e] = bb[2 * (c0 + e) + 1];
+    }
+    __syncthreads();
+    for (int f = 0; f < cnt; f += 32) {
+      unsigned word = 0;
+      const int len = min(32, cnt - f);
+      for (int u = 0; u < len; ++u) {
+        const bool ok = passes(px, py, pz, dub, box_lo[f + u], box_hi[f + u]);
+        if (__any_sync(kFull, ok)) word |= 1u << u;
+      }
+      if (lane == 0) mine[(c0 + f) >> 5] = word;
+    }
+  }
+  __syncwarp();
+
+  if (cand_out != nullptr || counts != nullptr) {
+    __syncthreads();  // every warp's mask written
+    int tiles = 0, visits = 0;
+    uint8_t* crow = cand_out != nullptr
+                        ? cand_out + (static_cast<size_t>(b) * ni + ti) * nj
+                        : nullptr;
+    for (int w = threadIdx.x; w < words; w += tn) {
+      unsigned any = 0;
+      for (int v = 0; v < warps; ++v) {
+        any |= masks[v * words + w];
+        visits += __popc(masks[v * words + w]);
+      }
+      tiles += __popc(any);
+      if (crow != nullptr)
+        for (int j = w * 32; j < min(nj, w * 32 + 32); ++j)
+          crow[j] = (any >> (j & 31)) & 1u;
+    }
+    if (counts != nullptr) {
+      atomicAdd(&s_tiles, tiles);
+      atomicAdd(&s_visits, visits);
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        int* cnt = counts + (static_cast<size_t>(b) * ni + ti) * 2;
+        cnt[0] = s_tiles;
+        cnt[1] = s_visits;
+      }
+    }
+  }
+
+  // scan: this warp's tiles, ascending, the next one staged meanwhile
+  const float4* qb = packed + static_cast<size_t>(b) * nj * tm;
+  const unsigned st =
+      static_cast<unsigned>(__cvta_generic_to_shared(stage));
+  unsigned long long best = kNoNeighbour;
+  int j = next_tile(mine, words, nj, 0);
+  if (j < nj) stage_tile(st, qb + static_cast<size_t>(j) * tm, tm, lane);
+  int buf = 0;
+  while (j < nj) {
+    const int jn = next_tile(mine, words, nj, j + 1);
+    if (jn < nj)
+      stage_tile(st + (buf ^ 1) * tm * 16, qb + static_cast<size_t>(jn) * tm,
+                 tm, lane);
+    else
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncwarp();
+    const unsigned base = st + buf * tm * 16;
+#pragma unroll 8
+    for (int u = 0; u < tm; ++u) {
+      const float4 v = lds128(base + u * 16);
+      const float d = ppt::sqdist3(v.x, v.y, v.z, px, py, pz);
+      const unsigned long long key =
+          (static_cast<unsigned long long>(__float_as_uint(d)) << 32) |
+          __float_as_uint(v.w);
+      best = key < best ? key : best;
+    }
+    __syncwarp();  // buf is refilled at the next tile's prefetch
+    buf ^= 1;
+    j = jn;
+  }
+  if (dub < 0.f) best = kNoNeighbour;
+  out_d[row] = __uint_as_float(static_cast<unsigned>(best >> 32));
+  out_i[row] = static_cast<int>(static_cast<unsigned>(best));
+}
+
+// Set on every launch, whatever the size: the kernel's static shared
+// memory counts against the same limit, so 48 KB of dynamic memory beside
+// it already needs the opt-in.
 cudaError_t set_smem(const void* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// Shared memory of the scan's block for tn rows, nj tiles of tm points.
+size_t scan_smem(int tn, int nj, int tm) {
+  const int warps = tn / 32;
+  const int words = (nj + 31) / 32;
+  return (2 * kBoxChunk + (warps * words + 3) / 4 +
+          static_cast<size_t>(warps) * 2 * tm) *
+         sizeof(float4);
 }
 
 }  // namespace
@@ -172,20 +347,34 @@ extern "C" int ppt_nn_band(const float* ps, const float* qsub,
 }
 
 // ps: float [B, ni*tn, 3]; qs: float [B, nj*tm, 3]; qid: int [B, nj*tm];
-// cand: uint8 [B, ni, nj]; out_d: float [B, ni*tn]; out_i: int [B, ni*tn].
-// tn <= 1024, a multiple of 32 and of tm.
-extern "C" int ppt_nn_resident(const float* ps, const float* qs,
-                               const int* qid, const uint8_t* cand, int b,
-                               int ni, int nj, int tn, int tm, float* out_d,
-                               int* out_i, cudaStream_t stream) {
+// d_ub: float [B, ni*tn]; scratch: B * nj * (tm + 2) float4 (the packed
+// q, then the boxes); out_d: float [B, ni*tn]; out_i: int [B, ni*tn];
+// cand_out: null or uint8 [B, ni, nj]; counts: null or int [B, ni, 2] (the
+// block's candidate tiles, the tiles its warps visit). tn <= 1024 and a
+// multiple of 32; tm a multiple of 32 (one box a tile: ft = tm).
+extern "C" int ppt_nn_scan(const float* ps, const float* qs, const int* qid,
+                           const float* d_ub, int b, int ni, int nj, int tn,
+                           int tm, void* scratch, float* out_d, int* out_i,
+                           uint8_t* cand_out, int* counts,
+                           cudaStream_t stream) {
+  if (tn < 32 || tn > 1024 || tn % 32 != 0 || tm < 32 || tm % 32 != 0)
+    return cudaErrorInvalidValue;
   if (b == 0 || ni == 0) return cudaSuccess;
-  const size_t smem = static_cast<size_t>(tn) * sizeof(float4) +
-                      static_cast<size_t>(nj) * sizeof(int);
+  float4* packed = static_cast<float4*>(scratch);
+  float4* boxes = packed + static_cast<size_t>(b) * nj * tm;
+  const long long warps = static_cast<long long>(b) * nj;
+  if (warps > 0) {
+    nn_boxes_kernel<<<static_cast<unsigned>((warps + 7) / 8), 256, 0,
+                      stream>>>(qs, qid, b, nj, tm, packed, boxes);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const size_t smem = scan_smem(tn, nj, tm);
   const cudaError_t err =
-      set_smem(reinterpret_cast<const void*>(nn_resident_kernel), smem);
+      set_smem(reinterpret_cast<const void*>(nn_scan_kernel), smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(ni, b);
-  nn_resident_kernel<<<grid, tn, smem, stream>>>(ps, qs, qid, cand, ni, nj,
-                                                 tm, out_d, out_i);
+  nn_scan_kernel<<<grid, tn, smem, stream>>>(
+      ps, d_ub, packed, boxes, ni, nj, tm, out_d, out_i, cand_out, counts);
   return cudaGetLastError();
 }

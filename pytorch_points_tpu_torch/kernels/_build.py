@@ -36,6 +36,8 @@ _FA, _IA = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # xyz, mask, seed, b, n, k, out_idx, out_xyz, scratch, stream
     "ppt_fps": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # n, iters, out (3 int64), stream
+    "ppt_fps_step_floor": [_I, _I, _P, _P],
     # sup, qry, b, n, p, nsample, r2, out_idx, out_cnt, stream
     "ppt_ball_query": [_P, _P, _I, _I, _I, _I, _F, _P, _P, _P],
     # sup, qry, p0, b, n, p, nsample, r2, out_idx, out_cnt, out_g, stream
@@ -57,8 +59,10 @@ _SIGNATURES = {
     "ppt_nn_worklist": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # ps, qsub, centers, b, ni, mq, tb, tbq, out, stream
     "ppt_nn_band": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    # ps, qs, qid, cand, b, ni, nj, tn, tm, out_d, out_i, stream
-    "ppt_nn_resident": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # ps, qs, qid, d_ub, b, ni, nj, tn, tm, scratch, out_d, out_i, cand_out,
+    # counts, stream
+    "ppt_nn_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                    _P],
     # n, ti -> bytes of one cloud's state
     "ppt_auction_state_bytes": [_I, _I],
     # b, n, ti -> blocks a cloud's cluster takes (1: none)

@@ -2,7 +2,11 @@
 
 CUDA kernel: ``csrc/fps.cu``, which replaces the TPU kernel
 ``pytorch_points_tpu/kernels/fps.py::_fps_kernel``. The header note there
-says what bounds it on the card.
+says what bounds it on the card and how the design meets it: each cloud
+on chip (coordinates in shared memory, running minima in registers) in one
+block, bucketed into Morton cells so that a warp skips a step's fold when
+its bounding box lies beyond its points' running minima; one barrier a
+step. Past 16,384 points a cloud takes the streaming kernel.
 """
 
 from __future__ import annotations
@@ -12,10 +16,12 @@ import torch
 from pytorch_points_tpu_torch.kernels import _build, dispatch
 
 _ppt_fps = _build.entry("ppt_fps")
+_ppt_fps_step_floor = _build.entry("ppt_fps_step_floor")
 
-# Largest running min-distance buffer (N * 4 bytes) kept in shared memory;
-# the H100 gives a block up to 227 KB. Larger clouds use a scratch buffer.
-_SMEM_MAX_BYTES = 200 * 1024
+# The largest cloud the kernel keeps on chip, on one block (192 KB of
+# coordinates in shared memory). Larger clouds take the streaming kernel
+# (running min in a scratch buffer).
+BLOCK_POINTS = 16384
 
 
 def fps_torch(xyz: torch.Tensor, k: int, mask: torch.Tensor | None = None,
@@ -51,7 +57,10 @@ def fps_torch(xyz: torch.Tensor, k: int, mask: torch.Tensor | None = None,
 
 def fps_cuda(xyz: torch.Tensor, k: int, mask: torch.Tensor | None = None,
              seed_idx: torch.Tensor | None = None):
-    """Launch the CUDA kernel: same contract as :func:`fps_torch`."""
+    """Launch the CUDA kernel: same contract as :func:`fps_torch`.
+
+    Clouds of up to :data:`BLOCK_POINTS` points stay on chip, one block a
+    cloud; larger ones take the streaming kernel."""
     b, n, _ = xyz.shape
     _build.require(xyz, "fps xyz", torch.float32, (b, n, 3))
     if mask is not None:
@@ -63,12 +72,12 @@ def fps_cuda(xyz: torch.Tensor, k: int, mask: torch.Tensor | None = None,
     idx = torch.empty((b, k), dtype=torch.int32, device=xyz.device)
     coords = torch.empty((b, k, 3), dtype=torch.float32, device=xyz.device)
     scratch = None
-    if n * 4 > _SMEM_MAX_BYTES:
+    if n > BLOCK_POINTS:
         scratch = torch.empty((b, n), dtype=torch.float32, device=xyz.device)
     err = _ppt_fps(
         xyz.data_ptr(), _build.ptr(mask), _build.ptr(seed_idx), b, n, k,
-        idx.data_ptr(), coords.data_ptr(), _build.ptr(scratch),
-        _build.stream(xyz),
+        idx.data_ptr(), coords.data_ptr(),
+        _build.ptr(scratch), _build.stream(xyz),
     )
     _build.check(err, "ppt_fps")
     fps_cuda.launches += 1
@@ -76,6 +85,21 @@ def fps_cuda(xyz: torch.Tensor, k: int, mask: torch.Tensor | None = None,
 
 
 fps_cuda.launches = 0
+
+
+def fps_step_floor(n: int, iters: int = 4096,
+                   device: str | torch.device = "cuda"):
+    """(cycles, ns) of one empty step on the block :func:`fps_cuda` takes
+    for clouds of ``n`` points: the warp reductions, the slot stores, the
+    barrier, the reduction over every slot and the winner's coordinates,
+    each step depending on the one before, from clock64 and %globaltimer
+    around ``iters`` of them on the card. k times it is K1's latency
+    bound. A measurement aid, not a kernel of any path."""
+    out = torch.zeros(3, dtype=torch.int64, device=device)
+    err = _ppt_fps_step_floor(n, iters, out.data_ptr(), _build.stream(out))
+    _build.check(err, "ppt_fps_step_floor")
+    cycles, ns, _ = out.tolist()
+    return cycles / iters, ns / iters
 
 
 def furthest_point_sample(xyz: torch.Tensor, k: int,

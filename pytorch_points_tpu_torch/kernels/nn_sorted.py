@@ -1,22 +1,26 @@
 """Morton-sorted, bound-pruned nearest neighbour (kernel K6: band pass and
-resident NN scan; kernel K7: the band pass with per-tile window centres,
-for masked clouds).
+NN scan; kernel K7: the band pass with per-tile window centres, for masked
+clouds).
 
 CUDA kernels: ``csrc/nn_sorted.cu``, which replaces the TPU kernels
 ``pytorch_points_tpu/kernels/nn_sorted.py::_band_kernel`` (``band_min``),
 ``::_band_kernel_pf`` (``band_min_dynamic``, the same kernel given a
-centre table) and ``::_nn_resident_kernel`` (``_run_resident``). The header
-note there says what bounds them on the card and why no worklist budget is
+centre table) and ``::_nn_resident_kernel`` (``_run_resident``) with the
+candidate mask in front of it (``_cand_mask``, XLA there). The header note
+there says what bounds them on the card and why no worklist budget is
 needed.
 
 The pipeline, as in the JAX package: sort both clouds along a Morton curve
 (stable, so the permutation is the reference's); pad them with poison to
 whole tiles; bound each point's NN distance from above with the band pass;
 mark the (p-tile, q-tile) pairs whose AABB lower bound does not exceed the
-bound of some point of the p-tile (``_cand_mask``, torch ops); scan only
-those pairs. The scan carries each point's ORIGINAL index and keeps the
-lowest on ties, so its results equal the dense kernel (K5) on the original
-clouds, distances and indices bitwise. Masked (poisoned) clouds take
+bound of some point of the p-tile; scan only those pairs. On the card the
+NN scan (:func:`nn_scan`) decides the candidates itself, each warp for its
+own 32 rows, from the bounds; its plain version builds the reference's
+mask (:func:`_cand_mask`, torch ops) and scans it. The scan carries
+each point's ORIGINAL index and keeps the lowest on ties, so its results
+equal the dense kernel (K5) on the original clouds, distances and indices
+bitwise. Masked (poisoned) clouds take
 :func:`nndistance_indexed_masked`: valid points sorted over the valid
 AABB with the poison last, and band windows centred by the valid counts.
 """
@@ -38,13 +42,19 @@ from pytorch_points_tpu_torch.kernels.distance_tiles import (
 from pytorch_points_tpu_torch.kernels.scatter import scatter_add
 
 _ppt_nn_band = _build.entry("ppt_nn_band")
-_ppt_nn_resident = _build.entry("ppt_nn_resident")
+_ppt_nn_scan = _build.entry("ppt_nn_scan")
 
 # Tile sizes of the reference's nndistance_indexed / nndistance_sums:
 # resident rows (tn) and columns (tm), fine AABB sub-tiles (ft), band rows
 # (tb), band window tiles (tbq) over q subsampled by ``STRIDE``.
 TN, TM, FT, TB, TBQ, STRIDE = 512, 64, 64, 512, 128, 4
 SENTINEL = 2**30  # index of a row that saw no candidate (reference value)
+# The candidate test's factor as an f32 tensor op applies it: float32(1 -
+# 1e-5), the reference's constant.
+LB_SCALE = 1.0 - 1e-5
+# Rows a warp of the CUDA scan decides and scans together (a row a lane):
+# the unit of its tile-visit counter.
+SCAN_WARP_ROWS = 32
 
 
 _INVALID_CODE = 0xFFFFFFFF  # the reference's max uint32 key: invalid last
@@ -222,22 +232,29 @@ def band_min_dynamic(ps: torch.Tensor, qs: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _cand_mask(ps: torch.Tensor, qs: torch.Tensor, d_ub: torch.Tensor,
-               ft: int, ktn: int, ktm: int) -> torch.Tensor:
-    """[B, nI, nJ] bool: q-tile J (ktm points) is needed by some point of
-    p-tile I (ktn points). The exact AABB lower bound against fine ft-point
-    q sub-tiles, OR-folded to kernel tiles; the (1 - 1e-5) factor absorbs
-    the f32 rounding of the bound, as in the reference. Materialises
-    [B, nI, ktn, nJ*ktm/ft] float temporaries (about 0.5 GB each at B=32
-    N=M=16384)."""
+def sub_tile_boxes_torch(qs: torch.Tensor, ft: int):
+    """(qlo, qhi) [B, m/ft, 3]: the AABB of each ft-point sub-tile of the
+    sorted, padded cloud ``qs`` [B, m, >=3], pad and poison rows included.
+    The CUDA scan's box launch computes the same table."""
+    b, m = qs.shape[:2]
+    qt = qs[..., :3].reshape(b, m // ft, ft, 3)
+    return qt.amin(dim=2), qt.amax(dim=2)
+
+
+def _cand_rows(ps: torch.Tensor, qs: torch.Tensor, d_ub: torch.Tensor,
+               ft: int, ktn: int, ktm: int, rows: int) -> torch.Tensor:
+    """[B, nI, ktn / rows, nJ] bool: q-tile J (ktm points) is needed by some
+    point of each group of ``rows`` consecutive rows of p-tile I (ktn
+    points). The exact AABB lower bound against fine ft-point q sub-tiles,
+    OR-folded to kernel tiles; the (1 - 1e-5) factor absorbs the f32
+    rounding of the bound, as in the reference. Materialises [B, nI, ktn,
+    nJ*ktm/ft] float temporaries (about 0.5 GB each at B=32 N=M=16384)."""
     ps = ps[..., :3]
-    qs = qs[..., :3]
     b, n, _ = ps.shape
     m = qs.shape[1]
     ni, nj, fpk = n // ktn, m // ktm, ktm // ft
-    qt = qs.reshape(b, nj * fpk, ft, 3)
-    qlo = qt.amin(dim=2)[:, None, None]  # [B, 1, 1, nJf, 3]
-    qhi = qt.amax(dim=2)[:, None, None]
+    qlo, qhi = sub_tile_boxes_torch(qs, ft)
+    qlo, qhi = qlo[:, None, None], qhi[:, None, None]  # [B, 1, 1, nJf, 3]
     pr = ps.reshape(b, ni, ktn, 1, 3)
     lb = None
     for c in range(3):
@@ -245,21 +262,29 @@ def _cand_mask(ps: torch.Tensor, qs: torch.Tensor, d_ub: torch.Tensor,
         gap = torch.maximum(qlo[..., c] - pc, pc - qhi[..., c]).clamp_min_(0.0)
         gap = gap.mul_(gap)
         lb = gap if lb is None else lb.add_(gap)
-    ok = lb.mul_(1.0 - 1e-5) <= d_ub.reshape(b, ni, ktn, 1)
-    return ok.any(dim=2).reshape(b, ni, nj, fpk).any(dim=3)
+    ok = lb.mul_(LB_SCALE) <= d_ub.reshape(b, ni, ktn, 1)
+    g = ktn // rows
+    return ok.reshape(b, ni, g, rows, nj, fpk).any(dim=5).any(dim=3)
+
+
+def _cand_mask(ps: torch.Tensor, qs: torch.Tensor, d_ub: torch.Tensor,
+               ft: int, ktn: int, ktm: int) -> torch.Tensor:
+    """[B, nI, nJ] bool: q-tile J (ktm points) is needed by some point of
+    p-tile I (ktn points); the reference's ``_cand_mask``."""
+    return _cand_rows(ps, qs, d_ub, ft, ktn, ktm, ktn)[:, :, 0]
 
 
 # ---------------------------------------------------------------------------
-# resident NN scan over the candidate tile pairs
+# NN scan over the candidate tile pairs
 # ---------------------------------------------------------------------------
 
 
 def nn_resident_torch(ps: torch.Tensor, qs: torch.Tensor, qid: torch.Tensor,
                       cand: torch.Tensor, tn: int, tm: int):
-    """Plain version: the lexicographic minimum of (d^2, qid) over the q
-    points of each row's candidate tiles. [B,np,3], [B,mp,3], [B,mp] int32,
-    [B,np/tn,mp/tm] bool -> (d [B,np], id [B,np] int32); a row with no
-    candidate gives (inf, SENTINEL)."""
+    """The scan over a given candidate mask: the lexicographic minimum of
+    (d^2, qid) over the q points of each row's candidate tiles. [B,np,3],
+    [B,mp,3], [B,mp] int32, [B,np/tn,mp/tm] bool -> (d [B,np], id [B,np]
+    int32); a row with no candidate gives (inf, SENTINEL)."""
     b, np_, _ = ps.shape
     mp = qs.shape[1]
     dist = torch.empty((b, np_), dtype=torch.float32, device=ps.device)
@@ -279,49 +304,87 @@ def nn_resident_torch(ps: torch.Tensor, qs: torch.Tensor, qid: torch.Tensor,
     return dist, ids
 
 
-def nn_resident_cuda(ps: torch.Tensor, qs: torch.Tensor, qid: torch.Tensor,
-                     cand: torch.Tensor, tn: int, tm: int):
-    """Launch the resident NN kernel: same contract as
-    :func:`nn_resident_torch`."""
-    b, np_, _ = ps.shape
-    mp = qs.shape[1]
-    ni, nj = np_ // tn, mp // tm
-    _build.require(ps, "nn_resident ps", torch.float32, (b, np_, 3))
-    _build.require(qs, "nn_resident qs", torch.float32, (b, mp, 3))
-    _build.require(qid, "nn_resident qid", torch.int32, (b, mp))
-    _build.require(cand, "nn_resident cand", torch.bool, (b, ni, nj))
-    if not (tn <= 1024 and tn % 32 == 0 and tn % tm == 0
-            and tn * 16 + nj * 4 <= 200 * 1024):
-        raise ValueError(f"nn_resident: unsupported tiles tn={tn} tm={tm} "
-                         f"nj={nj}")
-    dist = torch.empty((b, np_), dtype=torch.float32, device=ps.device)
-    ids = torch.empty((b, np_), dtype=torch.int32, device=ps.device)
-    err = _ppt_nn_resident(
-        ps.data_ptr(), qs.data_ptr(), qid.data_ptr(), cand.data_ptr(), b, ni,
-        nj, tn, tm, dist.data_ptr(), ids.data_ptr(), _build.stream(ps),
-    )
-    _build.check(err, "ppt_nn_resident")
-    nn_resident_cuda.launches += 1
+def nn_scan_torch(ps: torch.Tensor, qs: torch.Tensor, qid: torch.Tensor,
+                  d_ub: torch.Tensor, tn: int = TN, tm: int = TM,
+                  cand_out: torch.Tensor | None = None,
+                  counts: torch.Tensor | None = None):
+    """Plain version of the NN scan: the reference's candidate mask
+    (:func:`_cand_mask`, fine sub-tiles of ``tm`` points), then the scan
+    over it (:func:`nn_resident_torch`); rows whose bound is negative
+    (padding, poison: they pass no tile of their own) give (inf, SENTINEL).
+    (d [B,np], id [B,np] int32). ``cand_out`` ([B, nI, nJ] bool) receives
+    the mask; ``counts`` ([B, nI, 2] int32) each block's candidate tiles and
+    the tiles its warps of :data:`SCAN_WARP_ROWS` rows pass."""
+    groups = _cand_rows(ps, qs, d_ub, tm, tn, tm, SCAN_WARP_ROWS)
+    cand = groups.any(dim=2)
+    dist, ids = nn_resident_torch(ps, qs, qid, cand, tn, tm)
+    neg = d_ub < 0
+    dist = dist.masked_fill_(neg, float("inf"))
+    ids = ids.masked_fill_(neg, SENTINEL)
+    if cand_out is not None:
+        cand_out.copy_(cand)
+    if counts is not None:
+        counts[..., 0] = cand.sum(dim=2)
+        counts[..., 1] = groups.sum(dim=(2, 3))
     return dist, ids
 
 
-nn_resident_cuda.launches = 0
+def nn_scan_cuda(ps: torch.Tensor, qs: torch.Tensor, qid: torch.Tensor,
+                 d_ub: torch.Tensor, tn: int = TN, tm: int = TM,
+                 cand_out: torch.Tensor | None = None,
+                 counts: torch.Tensor | None = None):
+    """Launch the NN scan (the box launch, then the scan): same contract as
+    :func:`nn_scan_torch`."""
+    b, np_, _ = ps.shape
+    mp = qs.shape[1]
+    ni, nj = np_ // tn, mp // tm
+    _build.require(ps, "nn_scan ps", torch.float32, (b, np_, 3))
+    _build.require(qs, "nn_scan qs", torch.float32, (b, mp, 3))
+    _build.require(qid, "nn_scan qid", torch.int32, (b, mp))
+    _build.require(d_ub, "nn_scan d_ub", torch.float32, (b, np_))
+    if cand_out is not None:
+        _build.require(cand_out, "nn_scan cand_out", torch.bool, (b, ni, nj))
+    if counts is not None:
+        _build.require(counts, "nn_scan counts", torch.int32, (b, ni, 2))
+    if not (tn % SCAN_WARP_ROWS == 0 and tn <= 1024 and tm % 32 == 0
+            and tm <= 256):
+        raise ValueError(f"nn_scan: unsupported tiles tn={tn} tm={tm}")
+    dist = torch.empty((b, np_), dtype=torch.float32, device=ps.device)
+    ids = torch.empty((b, np_), dtype=torch.int32, device=ps.device)
+    scratch = torch.empty((b * nj * (tm + 2), 4), dtype=torch.float32,
+                          device=ps.device)
+    err = _ppt_nn_scan(
+        ps.data_ptr(), qs.data_ptr(), qid.data_ptr(), d_ub.data_ptr(), b, ni,
+        nj, tn, tm, scratch.data_ptr(), dist.data_ptr(), ids.data_ptr(),
+        _build.ptr(cand_out), _build.ptr(counts), _build.stream(ps),
+    )
+    _build.check(err, "ppt_nn_scan")
+    nn_scan_cuda.launches += 1
+    return dist, ids
 
 
-def nn_resident(ps: torch.Tensor, qs: torch.Tensor, qid: torch.Tensor,
-                cand: torch.Tensor, tn: int = TN, tm: int = TM,
-                impl: str = "auto"):
-    """NN of each ps row among the qs points of its candidate tiles, ties to
-    the lowest ``qid``: (d [B,np], id [B,np] int32)."""
+nn_scan_cuda.launches = 0
+
+
+def nn_scan(ps: torch.Tensor, qs: torch.Tensor, qid: torch.Tensor,
+            d_ub: torch.Tensor, tn: int = TN, tm: int = TM,
+            cand_out: torch.Tensor | None = None,
+            counts: torch.Tensor | None = None, impl: str = "auto"):
+    """NN of each ps row among the qs points of the candidate tiles its
+    bound ``d_ub`` [B,np] implies, ties to the lowest ``qid``: (d [B,np],
+    id [B,np] int32). Rows with a bound of at least their NN distance (the
+    band pass gives one) get their dense NN; rows with a negative bound
+    get (inf, SENTINEL). ``cand_out`` and ``counts`` as in
+    :func:`nn_scan_torch`."""
     if ps.shape[1] % tn or qs.shape[1] % tm:
-        raise ValueError(f"nn_resident: clouds must be whole tiles, got "
+        raise ValueError(f"nn_scan: clouds must be whole tiles, got "
                          f"{ps.shape[1]} rows (tn={tn}), {qs.shape[1]} "
                          f"columns (tm={tm})")
     if dispatch.resolve(impl, ps, "nn_resident") == "cuda":
-        return nn_resident_cuda(ps.contiguous(), qs.contiguous(),
-                                qid.to(torch.int32).contiguous(),
-                                cand.contiguous(), tn, tm)
-    return nn_resident_torch(ps, qs, qid, cand, tn, tm)
+        return nn_scan_cuda(ps.contiguous(), qs.contiguous(),
+                            qid.to(torch.int32).contiguous(),
+                            d_ub.contiguous(), tn, tm, cand_out, counts)
+    return nn_scan_torch(ps, qs, qid, d_ub, tn, tm, cand_out, counts)
 
 
 # ---------------------------------------------------------------------------
@@ -342,10 +405,8 @@ def _nn_sorted_space(ps, pid, qs, qid, impl):
     # Padding rows need no NN: no candidate at all (their bound is -1).
     d_ub1[:, n:] = -1.0
     d_ub2[:, m:] = -1.0
-    cand1 = _cand_mask(pp, qp, d_ub1, FT, TN, TM)
-    cand2 = _cand_mask(qp, pp, d_ub2, FT, TN, TM)
-    d1, i1 = nn_resident(pp, qp, _pad_ids(qid, m_pad), cand1, impl=impl)
-    d2, i2 = nn_resident(qp, pp, _pad_ids(pid, n_pad), cand2, impl=impl)
+    d1, i1 = nn_scan(pp, qp, _pad_ids(qid, m_pad), d_ub1, impl=impl)
+    d2, i2 = nn_scan(qp, pp, _pad_ids(pid, n_pad), d_ub2, impl=impl)
     return d1[:, :n], i1[:, :n], d2[:, :m], i2[:, :m]
 
 
@@ -399,8 +460,8 @@ def nndistance_indexed_masked(p: torch.Tensor, q: torch.Tensor,
 
     The reference runs its resident scan over a compacted pair list of
     static size and, past that budget, falls back to the dense kernel with
-    a ``lax.cond``. The port's resident kernel reads the candidate mask
-    directly and needs no budget, so that fallback has no counterpart."""
+    a ``lax.cond``. The port's scan visits its candidates directly and
+    needs no budget, so that fallback has no counterpart."""
     p = p.to(torch.float32)
     q = q.to(torch.float32)
     n, m = p.shape[1], q.shape[1]
@@ -419,10 +480,8 @@ def nndistance_indexed_masked(p: torch.Tensor, q: torch.Tensor,
     c2 = _band_centers(vq, vp, m_pad // TB, n_pad // TB, TB)
     d_ub1 = torch.where(pvs, band_min_dynamic(pp, qp, c1, TB, impl), -1.0)
     d_ub2 = torch.where(qvs, band_min_dynamic(qp, pp, c2, TB, impl), -1.0)
-    cand1 = _cand_mask(pp, qp, d_ub1, FT, TN, TM)
-    cand2 = _cand_mask(qp, pp, d_ub2, FT, TN, TM)
-    d1s, i1s = nn_resident(pp, qp, _pad_ids(perm_q, m_pad), cand1, impl=impl)
-    d2s, i2s = nn_resident(qp, pp, _pad_ids(perm_p, n_pad), cand2, impl=impl)
+    d1s, i1s = nn_scan(pp, qp, _pad_ids(perm_q, m_pad), d_ub1, impl=impl)
+    d2s, i2s = nn_scan(qp, pp, _pad_ids(perm_p, n_pad), d_ub2, impl=impl)
     # Poisoned rows saw no candidate and hold (inf, SENTINEL): (0, 0) before
     # the un-permute, as the reference sets them, which is also the public
     # contract of a masked row.

@@ -76,14 +76,79 @@ def test_fps_cuda_matches_plain(dev, case):
 
 
 def test_fps_cuda_scratch_path(dev):
-    # N*4 bytes above the shared-memory budget: running min-distance in a
-    # device scratch buffer instead.
-    n = fps._SMEM_MAX_BYTES // 4 + 100
+    # N past the on-chip limit (one block of 16384 points): the streaming
+    # kernel, running min-distance in a device scratch buffer.
+    n = fps.BLOCK_POINTS + 100
     (xyz,) = _on(dev, cloud(np.random.default_rng(8), 2, n))
     with torch.inference_mode():
         got = fps.furthest_point_sample(xyz, 64, impl="cuda")
         ref = fps.furthest_point_sample(xyz, 64, impl="torch")
     _assert_same(got, ref)
+
+
+def _fps_matches_plain(xyz, k, mask=None, seed=None):
+    """K1 bitwise equal to the plain version; returns the plain result."""
+    with torch.inference_mode():
+        ref = fps.furthest_point_sample(xyz, k, mask, seed, impl="torch")
+        _assert_same(fps.furthest_point_sample(xyz, k, mask, seed,
+                                               impl="cuda"), ref)
+    return ref
+
+
+@pytest.mark.parametrize("n", [1, 31, 2048, 16384, 16385])
+def test_fps_cuda_sizes_match_plain(dev, n):
+    # both sides of the on-chip limit: one block up to 16384 points, the
+    # streaming kernel past it
+    rng = np.random.default_rng(30 + n)
+    xyz, mask = _on(dev, cloud(rng, 3, n), rng.uniform(size=(3, n)) < 0.75)
+    k = min(n, 200)
+    _fps_matches_plain(xyz, k)
+    _fps_matches_plain(xyz, k, mask)
+
+
+FPS_EDGES = {  # name -> (B, N, k, kind, valid count or None, seed)
+    "k1": (3, 2048, 1, "random", None, None),
+    "k_eq_n": (2, 700, 700, "random", None, None),
+    "k_gt_valid": (3, 2048, 300, "random", 100, None),
+    "no_valid": (2, 512, 16, "random", 0, None),
+    "seed": (3, 4096, 64, "random", None, "random"),
+    "seed_last": (3, 4096, 64, "random", None, "last"),
+    "masked_seed_last": (2, 4096, 64, "random", 3000, "last"),
+    "tie_grid": (2, 4096, 512, "grid", None, None),
+    "b1": (1, 16384, 256, "random", None, None),
+    "b40": (40, 16384, 64, "random", None, None),
+    "onchip_limit": (2, fps.BLOCK_POINTS, 16, "random", None, "last"),
+    "streamed": (2, 20000, 64, "random", None, "last"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FPS_EDGES))
+def test_fps_cuda_edges_match_plain(dev, case):
+    # k = 1, k = N, k past the valid count (duplicates), no valid point
+    # (index 0 throughout), seeds (on the last index too), exact ties at
+    # every step, one cloud, 40 clouds, the largest on-chip cloud and a
+    # streamed one
+    b, n, k, kind, valid, seed = FPS_EDGES[case]
+    rng = np.random.default_rng(40)
+    xyz = cloud(rng, b, n, kind)
+    mask = None if valid is None else np.broadcast_to(
+        np.arange(n) < valid, (b, n)).copy()
+    if seed == "random":
+        seed = rng.integers(0, n, (b,)).astype(np.int32)
+    elif seed == "last":
+        seed = np.full((b,), n - 1, np.int32)
+    xyz, mask, seed = _on(dev, xyz, mask, seed)
+    idx, _ = _fps_matches_plain(xyz, k, mask, seed)
+    if valid == 0:
+        assert (idx == 0).all()
+    if valid and valid < k and seed is None:  # duplicates of valid points
+        assert (idx[:, valid:] < valid).all()
+
+
+@pytest.mark.parametrize("n", [2048, 16384, 100000])
+def test_fps_step_floor(dev, n):
+    cycles, ns = fps.fps_step_floor(n, device=dev)
+    assert 0 < cycles < 1e6 and 0 < ns < 1e6
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -297,6 +362,107 @@ def test_nn_sorted_cuda_matches_plain_and_dense(dev, n, m, kind):
     _assert_same(got, dense)
     _assert_same(sums[2:], sums_ref[2:])
     torch.testing.assert_close(sums[:2], sums_ref[:2], rtol=1e-6, atol=0)
+
+
+def _scan_inputs(dev, kind, n, m, b=2):
+    """(ps, qs, d_ub, qid) on the card as the sorted chamfer gives them to
+    K6's scan: sorted, padded, the band's bounds (-1 on padding and, for
+    "masked", poisoned rows)."""
+    p, q = _on(dev, *nn_inputs(kind, n, m, b))
+    n_pad, m_pad = -(-n // 512) * 512, -(-m // 512) * 512
+    if kind == "masked":
+        pv, qv = (x[..., 0].abs() < 2.0e4 for x in (p, q))
+        ps, _, pvs = nn_sorted.sort_by_morton_masked(p, pv)
+        qs, perm_q, _ = nn_sorted.sort_by_morton_masked(q, qv)
+        pp = nn_sorted._pad_poison(ps, n_pad, 1.0)
+        qp = nn_sorted._pad_poison(qs, m_pad, -1.0)
+        pvs = torch.nn.functional.pad(pvs, (0, n_pad - n))
+        cen = nn_sorted._band_centers(pv.sum(1), qv.sum(1), n_pad // 512,
+                                      m_pad // 512, 512)
+        band = nn_sorted.band_min_dynamic(pp, qp, cen, impl="torch")
+        d_ub = torch.where(pvs, band, -1.0)
+    else:
+        ps, _ = nn_sorted.sort_by_morton(p)
+        qs, perm_q = nn_sorted.sort_by_morton(q)
+        pp = nn_sorted._pad_poison(ps, n_pad, 1.0)
+        qp = nn_sorted._pad_poison(qs, m_pad, -1.0)
+        d_ub = nn_sorted.band_min(pp, qp, tbq=128, stride=4, impl="torch")
+        d_ub[:, n:] = -1.0
+    return pp, qp, d_ub, nn_sorted._pad_ids(perm_q, m_pad)
+
+
+def _scan_with_counters(ps, qs, qid, d_ub, impl):
+    b, n = d_ub.shape
+    ni, nj = n // nn_sorted.TN, qs.shape[1] // nn_sorted.TM
+    counts = torch.full((b, ni, 2), -1, dtype=torch.int32, device=ps.device)
+    cand = torch.zeros((b, ni, nj), dtype=torch.bool, device=ps.device)
+    d, i = nn_sorted.nn_scan(ps, qs, qid, d_ub, cand_out=cand, counts=counts,
+                             impl=impl)
+    return d, i, counts, cand
+
+
+@pytest.mark.parametrize("n,m", [(600, 700), (1024, 3000), (4096, 4096)])
+@pytest.mark.parametrize("kind", ["random", "grid", "masked"])
+def test_nn_scan_cuda_matches_plain(dev, kind, n, m):
+    # K6's scan: the mask it writes equals the reference's _cand_mask, d
+    # and id equal the plain route (bitwise), the counters its own; every
+    # row with a bound gets its dense NN, the others (inf, 2^30)
+    ps, qs, d_ub, qid = _scan_inputs(dev, kind, n, m)
+    with torch.inference_mode():
+        got = _scan_with_counters(ps, qs, qid, d_ub, "cuda")
+        ref = _scan_with_counters(ps, qs, qid, d_ub, "torch")
+        bare = nn_sorted.nn_scan(ps, qs, qid, d_ub, impl="cuda")
+        cand = nn_sorted._cand_mask(ps, qs, d_ub, nn_sorted.FT, nn_sorted.TN,
+                                    nn_sorted.TM)
+        dense = nn_sorted.nn_resident_torch(ps, qs, qid, cand, nn_sorted.TN,
+                                            nn_sorted.TM)
+    _assert_same(got, ref)
+    _assert_same(bare, got[:2])
+    assert torch.equal(got[3], cand)
+    ok = d_ub >= 0
+    assert torch.equal(got[0][ok], dense[0][ok])
+    assert torch.equal(got[1][ok], dense[1][ok])
+    assert (got[1][~ok] == nn_sorted.SENTINEL).all()
+    assert (got[2][..., 1] <= got[2][..., 0] * nn_sorted.TN
+            // nn_sorted.SCAN_WARP_ROWS).all()
+
+
+def test_nn_scan_cuda_at_the_dynamic_shared_memory_edge(dev):
+    # M = 2^18 q points: 4096 q-tiles, whose bitmasks bring the scan's
+    # dynamic shared memory to exactly 48 KB, beside its static arrays
+    p, q = _on(dev, *nn_inputs("random", 1000, 262144, 1))
+    with torch.inference_mode():
+        got = nn_sorted.nndistance_indexed(p, q, impl="cuda")
+        ref = nn_sorted.nndistance_indexed(p, q, impl="torch")
+    _assert_same(got, ref)
+
+
+def test_nn_scan_cuda_one_far_row(dev):
+    # one sorted row of block 0 moved far from its tile-mates: its bound
+    # grows and its warp alone takes more tiles (the plain route's per-warp
+    # test says which); the kernel's visits grow by just that much
+    ps, qs, d_ub, qid = _scan_inputs(dev, "random", 4096, 4096)
+    rows, tn, tm = nn_sorted.SCAN_WARP_ROWS, nn_sorted.TN, nn_sorted.TM
+
+    def per_warp(ps, d_ub):  # [B, nI, warps] tiles each warp's rows pass
+        return nn_sorted._cand_rows(ps, qs, d_ub, tm, tn, tm, rows).sum(3)
+
+    with torch.inference_mode():
+        before = _scan_with_counters(ps, qs, qid, d_ub, "cuda")
+        warps0 = per_warp(ps, d_ub)
+        far = ps.clone()
+        far[:, 3 * rows + 5] = torch.tensor([2.0, -2.0, 2.0], device=dev)
+        far_ub = nn_sorted.band_min(far, qs, tbq=128, stride=4, impl="torch")
+        got = _scan_with_counters(far, qs, qid, far_ub, "cuda")
+        ref = _scan_with_counters(far, qs, qid, far_ub, "torch")
+        warps1 = per_warp(far, far_ub)
+    _assert_same(got, ref)
+    grew = warps1 - warps0
+    assert (grew[:, 0, 3] > 0).all()
+    grew[:, 0, 3] = 0
+    assert (grew == 0).all()  # no other warp changed
+    assert torch.equal(got[2][..., 1] - before[2][..., 1],
+                       (warps1 - warps0).sum(2).to(torch.int32))
 
 
 def test_nn_band_cuda_matches_plain(dev):

@@ -194,9 +194,8 @@ def test_cuda_impl_on_cpu_tensor_raises(op):
         "nn_dense": lambda: distance_tiles.nn_both_directions(x, x,
                                                               impl="cuda"),
         "nn_band": lambda: nn_sorted.band_min(cloud, cloud, impl="cuda"),
-        "nn_resident": lambda: nn_sorted.nn_resident(
-            cloud, cloud, idx.new_zeros(1, 512), torch.ones(1, 1, 8,
-                                                            dtype=bool),
+        "nn_resident": lambda: nn_sorted.nn_scan(
+            cloud, cloud, idx.new_zeros(1, 512), torch.zeros(1, 512),
             impl="cuda"),
     }[op]
     with pytest.raises(ValueError, match="CUDA tensor"):
