@@ -8,8 +8,9 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure raises and exits non-zero:
 
 1. build: compile ``pytorch_points_tpu_torch/csrc/*.cu`` with nvcc (into
-   ``build/pytorch_points_tpu_torch/``) and print the build time and the
-   card's name and power limit;
+   ``build/pytorch_points_tpu_torch/``) and print the build time, the
+   card's name and power limit, and each kernel's registers and stack
+   frame (where spills go) as cuobjdump reads them from the library;
 2. kernel vs plain: each CUDA kernel against its plain PyTorch version on
    the card, at every shape the main paths give it (the headline's FPS
    16384 -> 2048, ball query at P=2048, group gather and backward scatters
@@ -37,10 +38,15 @@ Phases, in order; any failure raises and exits non-zero:
    against the streaming kNN (K8) at B=4 N=16384 with forced ties and
    ragged valid counts, K9 also at config 6 with k = 1, 64 and 65, and each
    ring case with its work counter (the pairs its warps scanned, equal to
-   the plain version's) beside the bound's tile-level pairs; the ball query
-   that emits centred coordinates at the serve and headline shapes and on a
-   75%-valid mask with a zero-hit row whose point 0 is masked; the worklist NN on the pruned NN's own
-   inputs (B=32 N=16384, q a shuffle of p) and on a tie grid with a random
+   the plain version's) beside the bound's tile-level pairs; every ball
+   query case (K2 and the instance that emits centred coordinates, at the
+   serve shapes B=16 N=2048 and B=32 N=16384, SA2's and the headline's,
+   and on a 75%-valid mask with a zero-hit row whose point 0 is masked)
+   with its work counter (the support points each centroid's scan tested,
+   equal to the plain version's) beside the bound's pairs; the worklist NN
+   on the pruned NN's own inputs (B=32 N=16384, q a shuffle of p), with
+   the distances it evaluates (each candidate pair once) against the
+   earlier two-launch form's twice, and on a tie grid with a random
    candidate mask; the older-layout gather at its test shape; FPS (K1)
    at each shape with the step floor on the block it runs on (clock64
    around empty steps) and the latency bound it gives (k x floor); K6's NN
@@ -118,10 +124,10 @@ path was never launched.
 
 13. profile: one call of each main path, traced with torch.profiler after
    its untraced timing: wall ms, device busy ms and idle share per call,
-   and the largest device items; for config 6 and 6m also the glue around
-   the ring kernels (its device items and ms a call) and the host wall
-   minus the device busy. It checks nothing; its launches are not
-   counted.
+   the largest device items and the port's kernels among the rest; for
+   config 6 and 6m also the glue around the ring kernels (its device items
+   and ms a call) and the host wall minus the device busy. It checks
+   nothing; its launches are not counted.
 
 TF32 is switched off for matmuls and cuDNN so the port computes in float32
 as the JAX reference does. The script imports no JAX. Without a CUDA device,
@@ -133,6 +139,7 @@ from __future__ import annotations
 
 import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -453,6 +460,32 @@ def scatter_case(torch, label, i, u, m):
         cpu=lambda: scatter.scatter_add(i.cpu(), u.cpu(), m))
 
 
+def bq_case(torch, name, label, xyz, cen, radius, mask=None):
+    """K2 (``name`` "ball_query") or its coordinate-emitting instance
+    ("ball_query_coords") at nsample NSAMPLE, with its work counter: the
+    support points each centroid's scan tested, an output held equal to
+    the plain version's like the others and printed beside the bound's
+    pairs (each centroid to its own nsample-th hit)."""
+    from pytorch_points_tpu_torch.kernels import ballquery
+
+    fn = (ballquery.ball_query if name == "ball_query"
+          else ballquery.ball_query_and_group_coords)
+    # a counter each side, written in full by every call (so the timed
+    # calls allocate nothing more than the main paths' calls do)
+    counts = {impl: torch.full(cen.shape[:2], -1, dtype=torch.int32,
+                               device=cen.device) for impl in ("cuda",
+                                                               "torch")}
+
+    def run(impl):
+        return (*fn(xyz, cen, radius, NSAMPLE, mask, counts=counts[impl],
+                    impl=impl), counts[impl])
+
+    inputs = [xyz, cen] if mask is None else [xyz, cen, mask]
+    return Case(name, label, run, inputs,
+                bq_ops(torch, xyz, cen, radius, NSAMPLE, mask),
+                work=lambda got: got[-1].sum().item())
+
+
 def bq_ops(torch, xyz, cen, radius, nsample, mask=None):
     """Distance flops a ball query needs: each centre scans its support in
     index order up to its nsample-th hit (or to the end)."""
@@ -515,18 +548,13 @@ def kernel_cases(torch, rng, dev):
                                       impl="torch")
         flat = idx.reshape(b, -1)
         if tag == "B16_N2048":
-            cases.append(Case(
-                "ball_query_coords", f"sa1 {tag} P={NPOINT1} r={RADIUS1}",
-                lambda impl, x=xyz, c=cen: (
-                    ballquery.ball_query_and_group_coords(
-                        x, c, RADIUS1, NSAMPLE, impl=impl)),
-                [xyz, cen], bq_ops(torch, xyz, cen, RADIUS1, NSAMPLE)))
+            cases.append(bq_case(torch, "ball_query_coords",
+                                 f"sa1 {tag} P={NPOINT1} r={RADIUS1}", xyz,
+                                 cen, RADIUS1))
         cases += fps_cases(torch, f"sa1 {tag}", xyz, NPOINT1)
         cases += [
-            Case("ball_query", f"sa1 {tag} P={NPOINT1} r={RADIUS1}",
-                 lambda impl, x=xyz, c=cen: ballquery.ball_query(
-                     x, c, RADIUS1, NSAMPLE, impl=impl),
-                 [xyz, cen], bq_ops(torch, xyz, cen, RADIUS1, NSAMPLE)),
+            bq_case(torch, "ball_query", f"sa1 {tag} P={NPOINT1} r={RADIUS1}",
+                    xyz, cen, RADIUS1),
             Case("gather", f"sa1 xyz {tag} K={flat.shape[1]} C=3",
                  lambda impl, x=xyz, i=flat: gather.gather_rows(
                      x, i, impl=impl),
@@ -556,24 +584,16 @@ def kernel_cases(torch, rng, dev):
     f300 = t(frng.standard_normal((2, 300, 3)).astype(np.float32))
     i300 = t(frng.integers(0, 300, (2, 500)).astype(np.int32))
     cases += [
-        Case("ball_query_coords", "sa1 B16_N2048 75%-valid mask, point 0 "
-             "masked, zero-hit rows",
-             lambda impl: ballquery.ball_query_and_group_coords(
-                 xyz, zcen, RADIUS1, NSAMPLE, zmask, impl=impl),
-             [xyz, zcen, zmask],
-             bq_ops(torch, xyz, zcen, RADIUS1, NSAMPLE, zmask)),
+        bq_case(torch, "ball_query_coords", "sa1 B16_N2048 75%-valid mask, "
+                "point 0 masked, zero-hit rows", xyz, zcen, RADIUS1, zmask),
         Case("gather", "older layout (gather.py:32) B2 N=300 K=500 C=3",
              lambda impl: gather.gather_rows_t(f300, i300, impl=impl),
              [f300, i300], library=gather_call(torch, f300, i300)),
-        Case("ball_query", "sa1 B16_N2048 75%-valid mask",
-             lambda impl: ballquery.ball_query(xyz, cen, RADIUS1, NSAMPLE,
-                                               mask, impl=impl),
-             [xyz, cen, mask],
-             bq_ops(torch, xyz, cen, RADIUS1, NSAMPLE, mask)),
-        Case("ball_query", f"sa2 B16 N={NPOINT1} P={NPOINT2} r={RADIUS2}",
-             lambda impl: ballquery.ball_query(xyz2, cen2, RADIUS2, NSAMPLE,
-                                               impl=impl),
-             [xyz2, cen2], bq_ops(torch, xyz2, cen2, RADIUS2, NSAMPLE)),
+        bq_case(torch, "ball_query", "sa1 B16_N2048 75%-valid mask", xyz,
+                cen, RADIUS1, mask),
+        bq_case(torch, "ball_query",
+                f"sa2 B16 N={NPOINT1} P={NPOINT2} r={RADIUS2}", xyz2, cen2,
+                RADIUS2),
         Case("gather", f"sa2 features B16 K={NPOINT2 * NSAMPLE} C=128",
              lambda impl: gather.gather_rows(f1, flat2, impl=impl),
              [f1, flat2], library=gather_call(torch, f1, flat2)),
@@ -772,15 +792,9 @@ def training_kernel_cases(torch, rng, dev):
     hk = hidx.shape[1]
     cases += fps_cases(torch, f"headline B{hb} N={hn}", hp, HEAD["p"])
     cases += [
-        Case("ball_query", f"headline B{hb} N={hn} P={HEAD['p']} r={RADIUS1}",
-             lambda impl: ballquery.ball_query(hp, hc, RADIUS1, NSAMPLE,
-                                               impl=impl),
-             [hp, hc], bq_ops(torch, hp, hc, RADIUS1, NSAMPLE)),
-        Case("ball_query_coords",
-             f"headline B{hb} N={hn} P={HEAD['p']} r={RADIUS1}",
-             lambda impl: ballquery.ball_query_and_group_coords(
-                 hp, hc, RADIUS1, NSAMPLE, impl=impl),
-             [hp, hc], bq_ops(torch, hp, hc, RADIUS1, NSAMPLE)),
+        *(bq_case(torch, name,
+                  f"headline B{hb} N={hn} P={HEAD['p']} r={RADIUS1}", hp, hc,
+                  RADIUS1) for name in ("ball_query", "ball_query_coords")),
         Case("gather", f"headline group B{hb} K={hk} C=3",
              lambda impl: gather.gather_rows(hp, hidx, impl=impl),
              [hp, hidx], library=gather_call(torch, hp, hidx)),
@@ -954,12 +968,18 @@ def worklist_kernel_cases(torch, dev):
             plan["tm"])
     pairs = count.clamp(max=plan["k_max"]).sum().item()
     # the work: one distance tile per pair run, as the reference computes it
+    # and as the kernel does (the two-launch form computed it twice)
+    once = plan["tn"] * plan["tm"] * pairs
     cases = [Case(
         "nn_worklist", f"pruned NN B{b} N=M={n} q = shuffled p, {pairs} "
         "pairs",
         lambda impl: (dt.run_worklist_cuda if impl == "cuda" else
                       dt.run_worklist_torch)(*args),
-        list(args[:5]), DIST_FLOPS * plan["tn"] * plan["tm"] * pairs)]
+        list(args[:5]), DIST_FLOPS * once,
+        note=lambda got, ms: (
+            f"distances evaluated once a pair: {once} ({once / ms / 1e6!r} "
+            f"billion a second); the earlier two-launch form evaluated "
+            f"{2 * once}"))]
     gb, gn, tn, tm = 8, 4096, 256, 128
     ni, nj = gn // tn, gn // tm
     pp, qp = (torch.from_numpy(grid64(rng, gb, gn)).to(dev) for _ in range(2))
@@ -2005,11 +2025,17 @@ def phase_metrics(torch, dev, wrappers):
     return [launches], {}
 
 
+# How the port's kernels show in a trace: every kernel of csrc/ lives in an
+# anonymous namespace at the top level (PyTorch's own sit under at::).
+PORT_ITEMS = ("(anonymous namespace)::", "void (anonymous namespace)::")
+
+
 def profile_path(torch, label, fn, calls=5):
     """Untraced wall ms per call (after 3 warm-up calls), then ``calls``
     calls traced (:func:`traced`): device busy ms per call (the sum of the
     kernels' and copies' own times), the device's idle share of the
-    untraced wall time, and the largest device items."""
+    untraced wall time, and the largest device items, then the port's
+    kernels among the rest."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -2025,7 +2051,8 @@ def profile_path(torch, label, fn, calls=5):
           f"{busy!r} ms/call; device idle share {1 - busy / wall!r}; "
           f"{sum(n for _, (_, n) in items) / counted!r} device items/call"
           f"{marker}")
-    for name, (us, n) in items[:PROFILE_TOP]:
+    port = [i for i in items[PROFILE_TOP:] if i[0].startswith(PORT_ITEMS)]
+    for name, (us, n) in items[:PROFILE_TOP] + port:
         print(f"  {us / 1e3 / counted:10.4f} ms/call {n / counted:7.1f}/call"
               f"  {name[:90]}")
     ring_ms, glue_ms, glue_items = ring_split(dict(items), counted)
@@ -2033,6 +2060,31 @@ def profile_path(torch, label, fn, calls=5):
         print(f"  ring kernels {ring_ms!r} ms/call; the glue around them "
               f"{glue_items!r} device items/call, {glue_ms!r} ms/call; host "
               f"wall minus device busy {wall - busy!r} ms/call")
+
+
+def resource_usage(build, so):
+    """Print each kernel's registers, stack frame (where spills go), shared
+    and local memory in the built library, as cuobjdump reads them from
+    its cubins. It informs only: without the tools it says so."""
+    tools = Path(build._nvcc()).parent
+    try:
+        out = subprocess.run(
+            [str(tools / "cuobjdump"), "--dump-resource-usage", so],
+            capture_output=True, text=True, timeout=120, check=True).stdout
+        found = re.findall(r"Function (\S+):\s*\n\s*(REG:.*)", out)
+        names = subprocess.run(
+            [str(tools / "cu++filt")], input="\n".join(f for f, _ in found),
+            capture_output=True, text=True, timeout=60,
+            check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError) as err:
+        print(f"kernel resource usage: not measured ({err})")
+        return
+    if len(names) != len(found):  # unreadable demangling: the raw symbols
+        names = [f for f, _ in found]
+    print("kernel resource usage (cuobjdump; spills live in the STACK "
+          "frame):")
+    for name, (_, res) in zip(names, found):
+        print(f"  {res.split(' CONSTANT')[0]}  {name[:100]}")
 
 
 def import_port():
@@ -2094,9 +2146,10 @@ def main() -> int:
 
     print("== phase 1: build")
     t0 = time.perf_counter()
-    build.library()
+    lib = build.library()
     print(f"built kernels in {time.perf_counter() - t0!r} s into "
           f"{build.BUILD_DIR.relative_to(ROOT)}")
+    resource_usage(build, lib._name)
 
     stats = phase_kernels(torch, dev)
     paths, calls = [], {}

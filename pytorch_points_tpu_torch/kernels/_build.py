@@ -38,10 +38,13 @@ _SIGNATURES = {
     "ppt_fps": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     # n, iters, out (3 int64), stream
     "ppt_fps_step_floor": [_I, _I, _P, _P],
-    # sup, qry, b, n, p, nsample, r2, out_idx, out_cnt, stream
-    "ppt_ball_query": [_P, _P, _I, _I, _I, _I, _F, _P, _P, _P],
-    # sup, qry, p0, b, n, p, nsample, r2, out_idx, out_cnt, out_g, stream
-    "ppt_ball_query_coords": [_P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P],
+    # sup, qry, b, n, p, nsample, r2, scratch, out_idx, out_cnt, counts,
+    # stream
+    "ppt_ball_query": [_P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P],
+    # sup, qry, p0, b, n, p, nsample, r2, scratch, out_idx, out_cnt, out_g,
+    # counts, stream
+    "ppt_ball_query_coords": [_P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P,
+                              _P, _P],
     # features, idx, b, n, k, c, out, stream
     "ppt_gather_rows": [_P, _P, _I, _I, _I, _I, _P, _P],
     # qry, sup, b, nq, ns, c, k, out_d, out_i, stream
@@ -54,9 +57,10 @@ _SIGNATURES = {
     "ppt_scatter_add": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     # p, q, b, n, m, out_d, out_i, stream
     "ppt_nn_dense": [_P, _P, _I, _I, _I, _P, _P, _P],
-    # rows, cols, codes, count, b, n_rows, n_cols, t_row, t_col, k_max,
-    # out_d, out_i, stream
-    "ppt_nn_worklist": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # pp, qp, codes, count, b, n_rows, n_cols, tn, tm, k_max, keys, d1, i1,
+    # d2, i2, stream
+    "ppt_nn_worklist": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                        _P, _P, _P],
     # ps, qsub, centers, b, ni, mq, tb, tbq, out, stream
     "ppt_nn_band": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # ps, qs, qid, d_ub, b, ni, nj, tn, tm, scratch, out_d, out_i, cand_out,

@@ -160,9 +160,10 @@ def _worklist_codes(cand: torch.Tensor, k_max: int):
     Returns (codes1 [B,k_max] int32, codes2 [B,k_max] int32, count [B]
     int32): ``codes1`` the first k_max candidate pairs in i-major order as
     i*nJ + j, ascending; ``codes2`` the same pairs as j*nI + i, ascending
-    (j-major); entries past min(count, k_max) are padding that no kernel
-    reads. Only the first k_max pairs in i-major order run, as in the
-    reference; count is the number of candidates before that cut."""
+    (j-major), which only the plain version reads; entries past min(count,
+    k_max) are padding that nothing reads. Only the first k_max pairs in
+    i-major order run, as in the reference; count is the number of
+    candidates before that cut."""
     b, ni, nj = cand.shape
     if not 1 <= k_max <= ni * nj:
         raise ValueError(f"k_max={k_max} must lie in [1, {ni * nj}]")
@@ -224,34 +225,34 @@ def run_worklist_torch(pp: torch.Tensor, qp: torch.Tensor,
 def run_worklist_cuda(pp: torch.Tensor, qp: torch.Tensor,
                       codes1: torch.Tensor, codes2: torch.Tensor,
                       count: torch.Tensor, tn: int, tm: int):
-    """Launch the worklist kernel, once per direction: same contract as
+    """Launch the worklist kernel, both directions in one pass over the
+    i-major list ``codes1`` (``codes2`` is not read): same contract as
     :func:`run_worklist_torch`."""
+    del codes2  # the pass folds each pair into both directions
     b, n_pad, _ = pp.shape
     m_pad = qp.shape[1]
     k_max = codes1.shape[1]
     _build.require(pp, "nn_worklist pp", torch.float32, (b, n_pad, 3))
     _build.require(qp, "nn_worklist qp", torch.float32, (b, m_pad, 3))
     _build.require(codes1, "nn_worklist codes1", torch.int32, (b, k_max))
-    _build.require(codes2, "nn_worklist codes2", torch.int32, (b, k_max))
     _build.require(count, "nn_worklist count", torch.int32, (b,))
     if n_pad % tn or m_pad % tm:
         raise ValueError(f"nn_worklist: clouds of {n_pad} and {m_pad} rows "
                          f"are not whole tiles of {tn} and {tm}")
-    outs = []
-    for rows, cols, codes, t_row, t_col in ((pp, qp, codes1, tn, tm),
-                                            (qp, pp, codes2, tm, tn)):
-        nr, nc = rows.shape[1], cols.shape[1]
-        dist = torch.empty((b, nr), dtype=torch.float32, device=pp.device)
-        ids = torch.empty((b, nr), dtype=torch.int32, device=pp.device)
-        err = _ppt_nn_worklist(
-            rows.data_ptr(), cols.data_ptr(), codes.data_ptr(),
-            count.data_ptr(), b, nr, nc, t_row, t_col, k_max,
-            dist.data_ptr(), ids.data_ptr(), _build.stream(pp),
-        )
-        _build.check(err, "ppt_nn_worklist")
-        outs += [dist, ids]
+    dev = pp.device
+    keys = torch.empty(b * (n_pad + m_pad), dtype=torch.int64, device=dev)
+    d1 = torch.empty((b, n_pad), dtype=torch.float32, device=dev)
+    i1 = torch.empty((b, n_pad), dtype=torch.int32, device=dev)
+    d2 = torch.empty((b, m_pad), dtype=torch.float32, device=dev)
+    i2 = torch.empty((b, m_pad), dtype=torch.int32, device=dev)
+    err = _ppt_nn_worklist(
+        pp.data_ptr(), qp.data_ptr(), codes1.data_ptr(), count.data_ptr(), b,
+        n_pad, m_pad, tn, tm, k_max, keys.data_ptr(), d1.data_ptr(),
+        i1.data_ptr(), d2.data_ptr(), i2.data_ptr(), _build.stream(pp),
+    )
+    _build.check(err, "ppt_nn_worklist")
     run_worklist_cuda.launches += 1
-    return tuple(outs)
+    return d1, i1, d2, i2
 
 
 run_worklist_cuda.launches = 0

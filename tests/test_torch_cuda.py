@@ -34,9 +34,11 @@ from pytorch_points_tpu_torch.parallel import (
     reconstruction_loss,
 )
 from torch_inputs import (
+    BQ_EDGE_NSAMPLES,
     FPS_CASES,
     SCATTER_CASES,
     autoencoder_inputs,
+    bq_edge_inputs,
     bq_inputs,
     cloud,
     emd_cloud,
@@ -179,6 +181,69 @@ def test_ball_query_coords_cuda_matches_plain(dev, masked, nsample):
     assert (got[1] == 0).any()
 
 
+def _bq_both_match_plain(xyz, cen, radius, nsample, mask=None):
+    """Both instances of K2 (the plain query and the coordinate-emitting
+    one) bitwise equal to their plain versions, work counters included;
+    returns the coordinate instance's (idx, cnt, g, counts)."""
+    with torch.inference_mode():
+        for fn in (ballquery.ball_query,
+                   ballquery.ball_query_and_group_coords):
+            res = {}
+            for impl in ("cuda", "torch"):
+                counts = torch.full(cen.shape[:2], -1, dtype=torch.int32,
+                                    device=cen.device)
+                res[impl] = (*fn(xyz, cen, radius, nsample, mask,
+                                 counts=counts, impl=impl), counts)
+            _assert_same(res["cuda"], res["torch"])
+    return res["cuda"]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("nsample", BQ_EDGE_NSAMPLES)
+def test_ball_query_cuda_step_edges_match_plain(dev, nsample, masked):
+    # the CPU tests' edges: the nsample-th hit on the last point of a
+    # 32-point chunk, of the kernel's 128-point step and of the cloud
+    # (N = 333), fewer hits than nsample, zero-hit rows, masked support
+    xyz, cen, mask = bq_edge_inputs(nsample, masked)
+    if masked:
+        mask[:, 0] = False  # zero-hit rows fill from the unpoisoned point 0
+    idx, cnt, _, counts = _bq_both_match_plain(*_on(dev, xyz, cen), 0.2,
+                                               nsample, *_on(dev, mask))
+    assert (cnt[:, 1] == 0).all()
+    assert ((counts % ballquery.SCAN_STEP == 0) | (counts == 333)).all()
+    if not masked:
+        assert (idx[[0, 1, 2, 3], 0, nsample - 1].cpu()
+                == torch.tensor([63, 95, 127, 332])).all()
+
+
+BQ_PATH_SHAPES = {  # B, N, P, radius
+    "sa2": (16, 512, 128, 0.4),
+    "serve_b32": (32, 16384, 512, 0.2),
+    "headline": (32, 16384, 2048, 0.2),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(BQ_PATH_SHAPES))
+def test_ball_query_cuda_path_shapes_match_plain(dev, shape):
+    # the main paths' shapes, FPS centroids (the kernel's own K1)
+    b, n, p, radius = BQ_PATH_SHAPES[shape]
+    (xyz,) = _on(dev, cloud(np.random.default_rng(52), b, n))
+    with torch.inference_mode():
+        cen = fps.furthest_point_sample(xyz, p, impl="cuda")[1]
+    _, cnt, _, counts = _bq_both_match_plain(xyz, cen, radius, 32)
+    if n == 16384:  # full rows stop early, in whole steps
+        assert (counts[cnt == 32] < n).any()
+
+
+def test_ball_query_cuda_unaligned_support(dev):
+    # a support 12 bytes into its storage, N % 4 != 0: the kernel packs it
+    # from any alignment
+    (base,) = _on(dev, cloud(np.random.default_rng(53), 1, 1002))
+    xyz = base[:, 1:]
+    assert xyz.is_contiguous() and xyz.data_ptr() % 16
+    _bq_both_match_plain(xyz, xyz[:, ::10].contiguous(), 0.2, 32)
+
+
 def test_bq_group_centered_backward_cuda_matches_plain(dev):
     from pytorch_points_tpu_torch.ops.grouping import _bq_group_centered
 
@@ -219,6 +284,55 @@ def test_nn_worklist_cuda_matches_plain(dev):
             ref = distance_tiles._run_worklist(cand, pp, qp, 4, 16, 24, 256,
                                                128, 4096, k, impl="torch")
             _assert_same((*got[0], got[1]), (*ref[0], ref[1]))
+
+
+WORKLIST_TILES = [(100, 36), (128, 64), (256, 128), (384, 420), (1024, 256),
+                  (2048, 640)]
+
+
+@pytest.mark.parametrize("tn,tm", WORKLIST_TILES)
+def test_nn_worklist_cuda_tiles_match_plain(dev, tn, tm):
+    # each instance of the pair kernel (1, 2, 4 and 8 rows a thread), rows
+    # of a tile short of a warp, p tiles of two slabs, q tiles of two staged
+    # chunks and of a ragged column group; dyadic grid clouds (ties)
+    rng = np.random.default_rng(37)
+    b, ni, nj = 2, 3, 4
+    pp, qp = _on(dev, emd_cloud(rng, b, ni * tn, "grid"),
+                 emd_cloud(rng, b, nj * tm, "grid"))
+    cand = rng.uniform(size=(b, ni, nj)) < 0.5
+    cand[:, 0, 0] = True
+    (cand,) = _on(dev, cand)
+    k_max = int(cand.reshape(b, -1).sum(1).max())
+    with torch.inference_mode():
+        for k in (k_max, k_max - 3):
+            got = distance_tiles._run_worklist(cand, pp, qp, b, ni, nj, tn,
+                                               tm, ni * tn, k, impl="cuda")
+            ref = distance_tiles._run_worklist(cand, pp, qp, b, ni, nj, tn,
+                                               tm, ni * tn, k, impl="torch")
+            _assert_same((*got[0], got[1]), (*ref[0], ref[1]))
+
+
+@pytest.mark.parametrize("cut", [False, True])
+def test_nn_worklist_cuda_shuffled_same_bits_twice(dev, cut):
+    # q a per-cloud shuffle of p at B=4 N=16384, the pruned NN's own plan,
+    # the list whole or cut 40 pairs below the largest count (the p rows no
+    # pair reaches stay (inf, 0)); two runs give the same bits
+    rng = np.random.default_rng(38)
+    p = cloud(rng, 4, 16384)
+    p, q = _on(dev, p, np.stack([c[rng.permutation(16384)] for c in p]))
+    plan = distance_tiles.pruned_plan(p, q)
+    k_max = (int(plan["count"].max()) - 40) if cut else plan["k_max"]
+    codes1, codes2, count = distance_tiles._worklist_codes(plan["cand"],
+                                                           k_max)
+    args = (plan["pp"], plan["qp"], codes1, codes2, count, plan["tn"],
+            plan["tm"])
+    with torch.inference_mode():
+        got = distance_tiles.run_worklist_cuda(*args)
+        again = distance_tiles.run_worklist_cuda(*args)
+        ref = distance_tiles.run_worklist_torch(*args)
+    _assert_same(got, ref)
+    _assert_same(got, again)
+    assert torch.isinf(got[0]).any() == cut
 
 
 @pytest.mark.parametrize("kind", ["shuffle", "independent"])

@@ -68,6 +68,38 @@ def bq_inputs(masked):
     return xyz, cen, mask
 
 
+BQ_EDGE_NSAMPLES = (1, 31, 32, 33, 64)
+BQ_EDGE_N = 333  # not a multiple of 32, nor of the kernel's 4-point loads
+
+
+def bq_edge_inputs(nsample, masked, n=BQ_EDGE_N, radius=0.2):
+    """(support [5,n,3], centroids [5,8,3], mask or None) in [0,1]^3 for the
+    ball query's step edges at ``nsample``. Centroid 0 of each cloud sits
+    at (2,2,2), away from the cloud, and its hits are planted: clouds 0-3
+    put its nsample-th hit at point 63, 95, 127 (the last of a 32-point
+    chunk; 127 also ends the kernel's 128-point step) and n - 1 (the last
+    point), each with up to 3 more hits after it; cloud 4 gives it
+    nsample - 1 hits only. Centroid 1 is far from everything (zero hits),
+    centroid 2 in the middle of the cloud, the rest support points.
+    ``masked``: 25% of the points invalid, planted hits included."""
+    rng = np.random.default_rng(50 + nsample)
+    b, p = 5, 8
+    xyz = rng.uniform(0, 1, (b, n, 3)).astype(np.float32)
+    cen = xyz[:, rng.choice(n, p, replace=False)].copy()
+    cen[:, 0], cen[:, 1], cen[:, 2] = 2.0, -5.0, 0.5
+    for bi, target in enumerate((63, 95, 127, n - 1, None)):
+        last = n - 1 if target is None else target
+        hits = list(rng.choice(last, nsample - 1, replace=False))
+        if target is not None:
+            hits.append(target)
+            after = np.arange(target + 1, n)
+            hits += list(rng.choice(after, min(3, len(after)), replace=False))
+        off = rng.uniform(-1, 1, (len(hits), 3)) * radius / 2
+        xyz[bi, hits] = (2.0 + off).astype(np.float32)
+    mask = valid_mask(rng, b, n) if masked else None
+    return xyz, cen, mask
+
+
 def autoencoder_inputs(masked, b=2, n=512):
     rng = np.random.default_rng(7)
     xyz = rng.uniform(-1, 1, (b, n, 3)).astype(np.float32)
