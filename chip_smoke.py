@@ -15,7 +15,8 @@ Phases, in order; any failure raises and exits non-zero:
    the card, at every shape the main paths give it (the headline's FPS
    16384 -> 2048, ball query at P=2048, group gather and backward scatters
    included), with 75%-valid masked and tie-grid
-   cases: FPS, ball query, gather, kNN, dense NN (K5) and the Morton-pruned
+   cases: FPS, ball query, gather, kNN, dense NN (K5, both directions in
+   one pass, and K13, one direction) and the Morton-pruned
    band and NN scan (K6) with indices identical and values bitwise
    equal, K6 also against K5 on the same clouds; the scatter (K4) bitwise
    equal to its plain version run on the CPU (which sums in ascending k, as
@@ -57,18 +58,24 @@ Phases, in order; any failure raises and exits non-zero:
    each row's own candidate test passes, and every row's box tests), the
    tile-level bounds the earlier scan was held to, and the time of the
    reference's candidate mask in torch ops on the card; the repairs:
-   K8 at k = 65 and 128 (passes of 64), K9 and K10 at k = 100 (the wide
+   K8 at k = 16 and 17 (a register list and a heap) on the fp1 shape, at
+   k = 65 and 128 (heaps, one pass), K9 and K10 at k = 100 (the wide
    list), the any-C streaming scan at config 7's feature widths C = 24 and
-   96, and K11 with 9 phases (two chained launches). Kernel and
-   plain times from CUDA events (a plain
+   96, K5 at B=4 N=5000 M=3001, and K11 with 9 phases (two chained
+   launches). Kernel and plain times from CUDA events (a plain
    version that takes over a second: one call on the host clock); beside
    them each case's bound (the least time the card could take: bytes over
    3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger) and,
    for the gather and the scatter, the time of one PyTorch call computing
-   the same function (``torch.gather``, ``Tensor.index_add_``). The gather
-   and scatter cases, and their library calls, also give their device-only
-   time (torch.profiler, the device items of one call, summed; marked
-   where the trace lost its opening spin); each scatter case also its
+   the same function (``torch.gather``, ``Tensor.index_add_``). The gather,
+   scatter, kNN (K8) and dense NN (K5, K13) cases, and the library calls,
+   also give their device-only time (torch.profiler, the device items of
+   one call, summed; marked where the trace lost its opening spin); the
+   K8 and K5 cases also their issue floor (one lane-instruction for each
+   rounded operation of the distances at the card's peak issue rate, from
+   its highest SM clock); K5 and K13 at B=32 N=M=16384 give their event
+   time and their device-only time (reads taken until two agree, every
+   read printed) beside the check that K6 equals K5; each scatter case also its
    device items per call, its longest run and the time of ``index_add_``
    under ``torch.use_deterministic_algorithms(True)``;
 3. serve: a full-width PointCloudAutoencoder (random weights from a seeded
@@ -187,13 +194,16 @@ DIST_FLOPS = 8  # one squared distance: 3 subtract, 3 multiply, 2 add
 # K6's candidate test of one (row, tile box): 6 subtract, 6 max, 3 + 1
 # multiply, 2 add
 CAND_TEST_FLOPS = 18
-KNN_WIDE_K = (65, 128)  # K8 past one pass of 64
+KNN_LIST_K = (16, 17)  # K8's last register list and first heap
+KNN_WIDE_K = (65, 128)  # K8's heaps past 64 keys
 RING_WIDE_K = 100  # K9/K10 past the register lists
 RING_CONFIG6_K = (1, 64, 65)  # K9 at config 6: the lists' other forms
 CONFIG7_C = (24, 96)  # config 7's feature-space graphs (edge1, edge2)
 CONFIG7 = dict(b=8, n=2048, k=17)
 AUCTION_PHASES = 9  # past the 8 phases one K11 launch holds
-SPLIT_KERNELS = ("gather", "scatter")  # also timed device-only
+SPLIT_KERNELS = ("gather", "scatter", "knn", "nn_dense")  # device-only
+SMS, LANES_PER_SM = 132, 4 * 32  # H100 SXM: 4 schedulers of 32 lanes an SM
+DENSE_ODD = dict(b=4, n=5000, m=3001)  # K5 on ragged clouds
 DEVICE_CALLS = 5  # calls traced for a device-only time
 
 KERNELS = {  # name -> (source, TPU kernel it replaces)
@@ -212,7 +222,7 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "scatter": ("pytorch_points_tpu_torch/csrc/scatter.cu",
                 "pytorch_points_tpu/kernels/scatter.py:129"),
     "nn_dense": ("pytorch_points_tpu_torch/csrc/nn_dense.cu",
-                 "pytorch_points_tpu/kernels/distance_tiles.py:78"),
+                 "pytorch_points_tpu/kernels/distance_tiles.py:78 and :47"),
     "nn_worklist": ("pytorch_points_tpu_torch/csrc/nn_worklist.cu",
                     "pytorch_points_tpu/kernels/distance_tiles.py:197"),
     "nn_band": ("pytorch_points_tpu_torch/csrc/nn_sorted.cu",
@@ -331,14 +341,18 @@ class Case:
     itself computed (its work counter), printed beside the bound's, or
     None; ``note`` a function of the kernel's outputs and ms giving a line
     of the case's own figures (K1's step floor and latency bound, K6's
-    counters and bounds), or None."""
+    counters and bounds), or None; ``issue`` the lane-instructions of the
+    distance arithmetic the kernel itself issues (each distance once), whose
+    floor at the card's peak issue rate is printed beside the bound, or
+    None."""
 
     def __init__(self, name, label, fn, inputs, ops=0, library=None,
-                 bound=None, cpu=None, work=None, note=None):
+                 bound=None, cpu=None, work=None, note=None, issue=None):
         self.name, self.label, self.fn = name, label, fn
         self.inputs, self.ops, self.library, self.bound = (
             inputs, ops, library, bound)
         self.cpu, self.work, self.note = cpu, work, note
+        self.issue = issue
 
 
 def nbytes(tensors):
@@ -352,6 +366,24 @@ def bound_ms(byte_count, ops):
     t_bytes = byte_count / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@functools.cache
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def issue_floor_ms(ops):
+    """The least time the card issues ``ops`` lane-instructions in: every
+    SM's four schedulers issuing a warp-instruction each cycle at the
+    highest SM clock (no FMA in these distances: each rounded operation is
+    one lane-instruction)."""
+    return ops / (SMS * LANES_PER_SM * max_sm_clock_hz()) * 1e3
 
 
 def gather_call(torch, f, idx):
@@ -422,6 +454,29 @@ def device_ms(torch, fn, calls=DEVICE_CALLS):
     items, counted, marker = traced(torch, fn, calls)
     return (sum(us for us, _ in items.values()) / 1e3 / counted,
             sum(n for _, n in items.values()) / counted, marker)
+
+
+def agreed_device_ms(torch, fn, tries=4, rel=0.02):
+    """(device ms, device items, marker, every read) of ``fn``: device-only
+    reads (:func:`device_ms`) taken until two agree within ``rel``, the
+    agreeing pair's mean. A trace can misread a call (it has lost device
+    items, or read a long kernel at half its time), so one read alone does
+    not decide; after ``tries`` reads with no two agreeing, the median is
+    given and the marker says so."""
+    reads, items, marks = [], [], []
+    for _ in range(tries):
+        ms, n, mark = device_ms(torch, fn)
+        for j, other in enumerate(reads):
+            if abs(ms - other) <= rel * max(ms, other):
+                return ((ms + other) / 2, (n + items[j]) / 2,
+                        mark or marks[j], reads + [ms])
+        reads.append(ms)
+        items.append(n)
+        marks.append(mark)
+    order = sorted(range(tries), key=reads.__getitem__)
+    mid = order[tries // 2]
+    return (reads[mid], items[mid], marks[mid] + " [NO TWO READS AGREE]",
+            reads)
 
 
 def longest_run(torch, idx, n):
@@ -521,8 +576,8 @@ def fps_cases(torch, tag, xyz, k, mask=None):
                 f"{ms * 1e6 / k!r} ns a step")
 
     return [Case("fps", f"{tag} k={k}",
-                 lambda impl: fps.furthest_point_sample(xyz, k, mask,
-                                                        impl=impl),
+                 lambda impl: fps.furthest_point_sample(
+                     xyz, k, mask, emit_coords=True, impl=impl),
                  inputs, ops, note=note)]
 
 
@@ -543,11 +598,13 @@ def kernel_cases(torch, rng, dev):
     for tag, shp in (("B16_N2048", SLICE), ("B32_N16384", LARGE)):
         b, n = shp["b"], shp["n"]
         xyz = t(cloud(rng, b, n))
-        cen = fps.furthest_point_sample(xyz, NPOINT1, impl="torch")[1]
+        cen = fps.furthest_point_sample(xyz, NPOINT1, emit_coords=True,
+                                        impl="torch")[1]
         idx, _ = ballquery.ball_query(xyz, cen, RADIUS1, NSAMPLE,
                                       impl="torch")
         flat = idx.reshape(b, -1)
         if tag == "B16_N2048":
+            fp1_xyz, fp1_cen = xyz, cen
             cases.append(bq_case(torch, "ball_query_coords",
                                  f"sa1 {tag} P={NPOINT1} r={RADIUS1}", xyz,
                                  cen, RADIUS1))
@@ -561,14 +618,17 @@ def kernel_cases(torch, rng, dev):
                  [xyz, flat], library=gather_call(torch, xyz, flat)),
             Case("knn", f"fp1 {tag} Nq={n} Ns={NPOINT1} k=3",
                  lambda impl, x=xyz, c=cen: grouping.knn(x, c, 3, impl=impl),
-                 [xyz, cen], DIST_FLOPS * b * n * NPOINT1),
+                 [xyz, cen], DIST_FLOPS * b * n * NPOINT1,
+                 issue=DIST_FLOPS * b * n * NPOINT1),
         ]
     b, n = SLICE["b"], SLICE["n"]
     xyz = t(cloud(rng, b, n))
     mask = t(rng.uniform(size=(b, n)) < 0.75)
-    cen = fps.furthest_point_sample(xyz, NPOINT1, mask, impl="torch")[1]
+    cen = fps.furthest_point_sample(xyz, NPOINT1, mask, emit_coords=True,
+                                     impl="torch")[1]
     xyz2 = cen[:, :NPOINT1]
-    cen2 = fps.furthest_point_sample(xyz2, NPOINT2, impl="torch")[1]
+    cen2 = fps.furthest_point_sample(xyz2, NPOINT2, emit_coords=True,
+                                      impl="torch")[1]
     idx2, _ = ballquery.ball_query(xyz2, cen2, RADIUS2, NSAMPLE, impl="torch")
     f1 = t(rng.standard_normal((b, NPOINT1, 128)).astype(np.float32))
     flat2 = idx2.reshape(b, -1)
@@ -602,25 +662,37 @@ def kernel_cases(torch, rng, dev):
         *fps_cases(torch, f"sa2 B16 N={NPOINT1}", xyz2, NPOINT2),
         Case("knn", f"fp2 B16 Nq={NPOINT1} Ns={NPOINT2} k=3",
              lambda impl: grouping.knn(xyz2, cen2, 3, impl=impl),
-             [xyz2, cen2], DIST_FLOPS * b * NPOINT1 * NPOINT2),
+             [xyz2, cen2], DIST_FLOPS * b * NPOINT1 * NPOINT2,
+             issue=DIST_FLOPS * b * NPOINT1 * NPOINT2),
         Case("knn", "fp1 B16_N2048 75%-valid support mask",
              lambda impl: grouping.knn(xyz, cen, 3, support_mask=smask,
                                        impl=impl),
-             [xyz, cen, smask], DIST_FLOPS * b * n * NPOINT1),
+             [xyz, cen, smask], DIST_FLOPS * b * n * NPOINT1,
+             issue=DIST_FLOPS * b * n * NPOINT1),
     ]
-    for k in KNN_WIDE_K:  # passes of 64
+    b1, n1 = SLICE["b"], SLICE["n"]
+    for k in KNN_LIST_K:  # on fp1's shape
+        cases.append(Case(
+            "knn", f"B16 Nq={n1} Ns={NPOINT1} k={k}",
+            lambda impl, k=k, x=fp1_xyz, c=fp1_cen: topk_scan.knn(
+                x, c, k, impl=impl),
+            [fp1_xyz, fp1_cen], DIST_FLOPS * b1 * n1 * NPOINT1,
+            issue=DIST_FLOPS * b1 * n1 * NPOINT1))
+    for k in KNN_WIDE_K:  # heaps, one pass
         cases.append(Case(
             "knn", f"B16 Nq={n} Ns={NPOINT1} k={k}",
             lambda impl, k=k: topk_scan.knn(xyz, cen, k, impl=impl),
-            [xyz, cen], DIST_FLOPS * b * n * NPOINT1))
+            [xyz, cen], DIST_FLOPS * b * n * NPOINT1,
+            issue=DIST_FLOPS * b * n * NPOINT1))
     cb, cn, ck = CONFIG7["b"], CONFIG7["n"], CONFIG7["k"]
     crng = np.random.default_rng(SEED + 18)
-    for c in CONFIG7_C:  # the any-C scan; 3 C - 1 flops a distance
+    for c in CONFIG7_C:  # the any-C scan: 3 C - 1 flops a distance (the
+        # kernel issues 3 C: its sum starts from 0)
         f = t(crng.standard_normal((cb, cn, c)).astype(np.float32))
         cases.append(Case(
             "knn", f"config 7 feature graph B{cb} N={cn} C={c} k={ck}",
             lambda impl, f=f: topk_scan.knn(f, f, ck, impl=impl),
-            [f], (3 * c - 1) * cb * cn * cn))
+            [f], (3 * c - 1) * cb * cn * cn, issue=3 * c * cb * cn * cn))
     return cases
 
 
@@ -728,20 +800,30 @@ def training_kernel_cases(torch, rng, dev):
     pm, qm = (t(rng.uniform(size=(b, n)) < 0.75) for _ in range(2))
     pp, qp = poison_points(p, pm, 1.0), poison_points(q, qm, -1.0)
     gp, gq = (t(rng.integers(0, 8, (b, n, 3)) / 8).float() for _ in range(2))
-    dense_ops = 2 * DIST_FLOPS * b * n * n  # both directions
+    once = DIST_FLOPS * b * n * n  # each distance once, both directions
     cases = [
         Case("nn_dense", f"chamfer B16 N=M={n}",
              lambda impl: distance_tiles.nn_both_directions(p, q, impl=impl),
-             [p, q], dense_ops),
+             [p, q], once, issue=once),
         Case("nn_dense", f"chamfer B16 N=M={n} 75%-valid poisoned",
              lambda impl: distance_tiles.nn_both_directions(pp, qp,
                                                             impl=impl),
-             [pp, qp], dense_ops),
+             [pp, qp], once, issue=once),
         Case("nn_dense", f"chamfer B16 N=M={n} tie grid",
              lambda impl: distance_tiles.nn_both_directions(gp, gq,
                                                             impl=impl),
-             [gp, gq], dense_ops),
+             [gp, gq], once, issue=once),
+        Case("nn_dense", f"one direction (K13) B16 N=M={n}",
+             lambda impl: distance_tiles.nn_one_direction(p, q, impl=impl),
+             [p, q], once, issue=once),
     ]
+    ob, on, om = DENSE_ODD["b"], DENSE_ODD["n"], DENSE_ODD["m"]
+    op_, oq = t(cloud(rng, ob, on)), t(cloud(rng, ob, om))
+    cases.append(Case(
+        "nn_dense", f"both directions B{ob} N={on} M={om}",
+        lambda impl: distance_tiles.nn_both_directions(op_, oq, impl=impl),
+        [op_, oq], DIST_FLOPS * ob * on * om,
+        issue=DIST_FLOPS * ob * on * om))
 
     hb, hn = HEAD["b"], HEAD["n"]
     hp, hq = t(cloud(rng, hb, hn)), t(cloud(rng, hb, hn))
@@ -769,11 +851,13 @@ def training_kernel_cases(torch, rng, dev):
                       mgs, m_ids, m_ub, bare=False)
 
     xyz = t(cloud(rng, b, n))
-    cen = fps.furthest_point_sample(xyz, NPOINT1, impl="torch")[1]
+    cen = fps.furthest_point_sample(xyz, NPOINT1, emit_coords=True,
+                                    impl="torch")[1]
     idx1 = ballquery.ball_query(xyz, cen, RADIUS1, NSAMPLE,
                                 impl="torch")[0].reshape(b, -1)
     xyz2 = cen[:, :NPOINT1]
-    cen2 = fps.furthest_point_sample(xyz2, NPOINT2, impl="torch")[1]
+    cen2 = fps.furthest_point_sample(xyz2, NPOINT2, emit_coords=True,
+                                      impl="torch")[1]
     idx2 = ballquery.ball_query(xyz2, cen2, RADIUS2, NSAMPLE,
                                 impl="torch")[0].reshape(b, -1)
     u1 = t(rng.standard_normal((b, idx1.shape[1], 3)).astype(np.float32))
@@ -786,7 +870,8 @@ def training_kernel_cases(torch, rng, dev):
     # the headline's own FPS, ball query, group gather and their backward
     # scatters, on a cloud drawn as phase 5 draws its prediction
     hp = t(head_pred(rng))
-    hfps, hc = fps.furthest_point_sample(hp, HEAD["p"], impl="torch")
+    hfps, hc = fps.furthest_point_sample(hp, HEAD["p"], emit_coords=True,
+                                         impl="torch")
     hidx = ballquery.ball_query(hp, hc, RADIUS1, NSAMPLE,
                                 impl="torch")[0].reshape(hb, -1)
     hk = hidx.shape[1]
@@ -1057,11 +1142,34 @@ def check_k6_equals_k5(torch, dev):
             p, q, impl="cuda"))
         sums_ms = cuda_ms(torch, lambda: nn_sorted.nndistance_sums(
             p, q, impl="cuda"))
-        dense_ms = cuda_ms(torch, lambda: distance_tiles.nn_both_directions(
-            p, q, impl="cuda"))
-    print(f"K6 == K5 at B={HEAD['b']} N=M={HEAD['n']} (bitwise). Whole "
+        both = functools.partial(distance_tiles.nn_both_directions, p, q,
+                                 impl="cuda")
+        one = functools.partial(distance_tiles.nn_one_direction, p, q,
+                                impl="cuda")
+        dense_ms, one_ms = cuda_ms(torch, both), cuda_ms(torch, one)
+        both_dev, both_items, both_mark, both_reads = agreed_device_ms(
+            torch, both)
+        one_dev, one_items, one_mark, one_reads = agreed_device_ms(
+            torch, one)
+    hb, hn = HEAD["b"], HEAD["n"]
+    pairs = hb * hn * hn
+    # p and q read once; each direction's d and idx written once
+    both_bytes = 4 * 3 * 2 * hb * hn + 8 * 2 * hb * hn
+    one_bytes = 4 * 3 * 2 * hb * hn + 8 * hb * hn
+    floor = issue_floor_ms(DIST_FLOPS * pairs)
+    print(f"K6 == K5 at B={hb} N=M={hn} (bitwise). Whole "
           f"paths: nndistance_indexed {ms!r} ms, nndistance_sums "
           f"{sums_ms!r} ms, dense K5 both directions {dense_ms!r} ms")
+    print(f"K5 both directions B={hb} N=M={hn}: event {dense_ms!r} ms, "
+          f"device-only {both_dev!r} ms in {both_items!r} device items a "
+          f"call{both_mark} (reads {both_reads!r}); bound "
+          f"{bound_ms(both_bytes, DIST_FLOPS * pairs)[0]!r} ms; issue floor "
+          f"{floor!r} ms (each distance once)")
+    print(f"K13 one direction B={hb} N=M={hn}: event {one_ms!r} ms, "
+          f"device-only {one_dev!r} ms in {one_items!r} device items a "
+          f"call{one_mark} (reads {one_reads!r}); bound "
+          f"{bound_ms(one_bytes, DIST_FLOPS * pairs)[0]!r} ms; issue floor "
+          f"{floor!r} ms")
 
 
 def config4_clouds(torch, dev):
@@ -1133,9 +1241,14 @@ def hold_against_plain(torch, case, stats):
         print(f"{'':15s} {case.note(got, ms)}")
     if name in SPLIT_KERNELS:
         dev_ms, items, mark = device_ms(torch, lambda: fn("cuda"))
-        lib_dev, _, lib_mark = device_ms(torch, case.library)
         line = (f"{'':15s} device-only: kernel {dev_ms!r} ms in {items!r} "
-                f"device items a call{mark}; library {lib_dev!r} ms{lib_mark}")
+                f"device items a call{mark}")
+        if case.library is not None:
+            lib_dev, _, lib_mark = device_ms(torch, case.library)
+            line += f"; library {lib_dev!r} ms{lib_mark}"
+        if case.issue is not None:
+            line += (f"; issue floor {issue_floor_ms(case.issue)!r} ms (one "
+                     f"lane-instruction a rounded operation)")
         if name == "scatter":
             det_ms, det_dev, det_mark = deterministic_ms(torch, case.library)
             line += (f"; deterministic index_add_ {det_ms!r} ms, device-only"
@@ -1770,7 +1883,8 @@ def phase_fused(torch, dev, wrappers):
         label = f"{tag} B={b} N={n} P={p}"
         xyz = torch.from_numpy(cloud(rng, b, n)).to(dev)
         with torch.inference_mode():
-            cen = fps.furthest_point_sample(xyz, p, impl="cuda")[1]
+            cen = fps.furthest_point_sample(xyz, p, emit_coords=True,
+                                              impl="cuda")[1]
         w = torch.from_numpy(rng.standard_normal(
             (b, p, NSAMPLE, 3)).astype(np.float32)).to(dev)
 
@@ -2087,6 +2201,23 @@ def resource_usage(build, so):
         print(f"  {res.split(' CONSTANT')[0]}  {name[:100]}")
 
 
+class Launches:
+    """One entry of KERNELS served by several wrappers of one source (K5's
+    and K13's): their launch counts read and reset together."""
+
+    def __init__(self, *wrappers):
+        self.wrappers = wrappers
+
+    @property
+    def launches(self):
+        return sum(w.launches for w in self.wrappers)
+
+    @launches.setter
+    def launches(self, value):
+        for w in self.wrappers:
+            w.launches = value
+
+
 def import_port():
     """Put the checkout first on the path and import the port's kernel
     modules (nothing of JAX). Returns (the build module, each kernel's
@@ -2108,7 +2239,8 @@ def import_port():
                 "ball_query_coords": ballquery.ball_query_coords_cuda,
                 "gather": gather.gather_rows_cuda, "knn": topk_scan.knn_cuda,
                 "scatter": scatter.scatter_add_cuda,
-                "nn_dense": distance_tiles.nn_one_direction_cuda,
+                "nn_dense": Launches(distance_tiles.nn_both_directions_cuda,
+                                    distance_tiles.nn_one_direction_cuda),
                 "nn_worklist": distance_tiles.run_worklist_cuda,
                 "nn_band": nn_sorted.band_min_cuda,
                 "nn_band_dynamic": nn_sorted.band_min_dynamic_cuda,

@@ -77,7 +77,9 @@
 // - Lists of K = 8 or 16 keys live in registers (RegList: a K-step
 //   compare-and-swap chain an insert, every index static); longer ones are
 //   max-heaps (HeapList: one sift-down an insert), in the block's shared
-//   memory up to kSharedWide keys, else in global scratch.
+//   memory up to kSharedWide keys, else in global scratch. Both, the key
+//   and the queue's flush live in topk_list.cuh, which the streaming scan
+//   (knn.cu) shares.
 // A list entry is one 64-bit key, (d bits << 32) | (id << 1) | flag: d >= +0,
 // so the key orders as (d, id), and the flag bit (STATS: "inserted from
 // this chunk") never decides an order, as no two entries share (d, id).
@@ -104,10 +106,16 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "topk_list.cuh"
 
 namespace {
 
-using u64 = unsigned long long;
+using ppt::flush;
+using ppt::key_d;
+using ppt::key_id;
+using ppt::ListOf;
+using ppt::make_key;
+using ppt::u64;
 
 constexpr int kTq = 512;  // queries per tile: the ring's and counters' unit
 constexpr int kTm = 512;  // support rows per chunk
@@ -127,161 +135,7 @@ constexpr float kPadF = 16777216.f;
 constexpr unsigned kFull = 0xffffffffu;
 // (+inf, 2^24, no flag): an empty list slot; kNone never enters a list
 constexpr u64 kEmpty = (u64{0x7f800000u} << 32) | (u64{kPadId} << 1);
-constexpr u64 kNone = ~u64{0};
-
-__device__ __forceinline__ u64 make_key(float d, unsigned id2) {
-  return (u64{__float_as_uint(d)} << 32) | id2;
-}
-__device__ __forceinline__ float key_d(u64 key) {
-  return __uint_as_float(static_cast<unsigned>(key >> 32));
-}
-__device__ __forceinline__ int key_id(u64 key) {
-  return static_cast<int>(static_cast<unsigned>(key) >> 1);
-}
-
-// A lane's list in registers: K keys, ascending.
-template <int K>
-struct RegList {
-  u64 key[K];
-
-  __device__ __forceinline__ void init() {
-#pragma unroll
-    for (int s = 0; s < K; ++s) key[s] = kEmpty;
-  }
-  __device__ __forceinline__ u64 worst() const { return key[K - 1]; }
-  // Any key: each slot keeps the smaller of its key and the carried one,
-  // so a key not below the worst drops out at the end.
-  __device__ __forceinline__ void insert(u64 c) {
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      const bool lt = c < key[s];
-      const u64 a = lt ? c : key[s];
-      c = lt ? key[s] : c;
-      key[s] = a;
-    }
-  }
-  __device__ __forceinline__ void clear_flags() {
-#pragma unroll
-    for (int s = 0; s < K; ++s) key[s] &= ~u64{1};
-  }
-  __device__ __forceinline__ int flags() const {
-    int r = 0;
-#pragma unroll
-    for (int s = 0; s < K; ++s) r += static_cast<int>(key[s] & 1);
-    return r;
-  }
-  __device__ __forceinline__ void store(float* __restrict__ out_d,
-                                        int* __restrict__ out_i, size_t row,
-                                        int k) const {
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      if (s < k) {
-        out_d[row * k + s] = key_d(key[s]);
-        out_i[row * k + s] = key_id(key[s]);
-      }
-    }
-  }
-};
-
-// A lane's list as a max-heap of K keys, the worst at the root, in its
-// warp's [K][32] slab in shared memory or global scratch: slot s at h[s *
-// 32]. An insert replaces the root and sifts down: log2(K) levels of a
-// load pair, a compare and a store, where a register list pays a K-step
-// chain.
-struct HeapList {
-  u64* h;
-  int K;
-  u64 w;  // the root
-
-  __device__ __forceinline__ void init() {
-    for (int s = 0; s < K; ++s) h[s * 32] = kEmpty;
-    w = kEmpty;
-  }
-  __device__ __forceinline__ u64 worst() const { return w; }
-  // Place c at the root of a heap of n keys whose root is free.
-  __device__ __forceinline__ void sift(u64 c, int n) {
-    int i = 0;
-    for (int l = 1; l < n; l = 2 * i + 1) {
-      u64 m = h[l * 32];
-      if (l + 1 < n) {
-        const u64 r = h[(l + 1) * 32];
-        if (m < r) {
-          m = r;
-          ++l;
-        }
-      }
-      if (!(c < m)) break;
-      h[i * 32] = m;
-      i = l;
-    }
-    h[i * 32] = c;
-  }
-  __device__ __forceinline__ void insert(u64 c) {
-    if (!(c < w)) return;
-    sift(c, K);
-    w = h[0];
-  }
-  __device__ __forceinline__ void clear_flags() {
-    for (int s = 0; s < K; ++s) h[s * 32] &= ~u64{1};
-    w &= ~u64{1};
-  }
-  __device__ __forceinline__ int flags() const {
-    int r = 0;
-    for (int s = 0; s < K; ++s) r += static_cast<int>(h[s * 32] & 1);
-    return r;
-  }
-  // Pops the keys from the largest down; the k smallest land in order.
-  __device__ __forceinline__ void store(float* __restrict__ out_d,
-                                        int* __restrict__ out_i, size_t row,
-                                        int k) {
-    for (int n = K; n > 0; --n) {
-      const u64 top = h[0];
-      if (n <= k) {
-        out_d[row * k + n - 1] = key_d(top);
-        out_i[row * k + n - 1] = key_id(top);
-      }
-      sift(h[(n - 1) * 32], n - 1);
-    }
-  }
-};
-
-// K > 0: RegList<K>; otherwise a HeapList of k_pad slots bound to this
-// lane's column: K == -1 in the block's dynamic shared memory (slab), K ==
-// 0 in the scratch `lists` ([B * q_pad / 32][k_pad][32] keys).
-template <int K>
-struct ListOf {
-  using type = RegList<K>;
-  __device__ static void bind(type&, u64*, u64*, size_t, int, int) {}
-};
-template <>
-struct ListOf<-1> {
-  using type = HeapList;
-  __device__ static void bind(type& list, u64*, u64* slab, size_t, int k_pad,
-                              int lane) {
-    list.h = slab + lane;
-    list.K = k_pad;
-  }
-};
-template <>
-struct ListOf<0> {
-  using type = HeapList;
-  __device__ static void bind(type& list, u64* lists, u64*, size_t warp,
-                              int k_pad, int lane) {
-    list.h = lists + warp * k_pad * 32 + lane;
-    list.K = k_pad;
-  }
-};
-
-// Merge every lane's queued keys (slot s at q[s * 32 + lane]) into the
-// lists, the warp in lockstep for as many rounds as its longest queue.
-template <class List>
-__device__ __forceinline__ void flush(const u64* q, int lane, int& qn,
-                                      List& list) {
-#pragma unroll 1
-  for (int s = 0; __any_sync(kFull, s < qn); ++s)
-    list.insert(s < qn ? q[s * 32 + lane] : kNone);
-  qn = 0;
-}
+constexpr u64 kNone = ppt::kNoKey;
 
 // A float4 from shared memory at a 32-bit shared-window address.
 __device__ __forceinline__ float4 lds128(unsigned addr) {
@@ -491,7 +345,7 @@ __global__ void __launch_bounds__(32)
   typename ListOf<K>::type list;
   ListOf<K>::bind(list, lists, heap_slab, static_cast<size_t>(b) * wpc + gw,
                   k_pad, lane);
-  list.init();
+  list.init(kEmpty);
   int visits = 0;
 
   for (int j = 0; j < nj; ++j) {

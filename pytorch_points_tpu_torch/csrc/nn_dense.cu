@@ -1,86 +1,94 @@
-// Dense nearest neighbour, one direction: for each point of p, the squared
-// distance to its nearest point of q and that point's index, ties to the
-// lowest index.
+// Dense nearest neighbour, both directions in one pass (kernel K5) or one
+// direction (K13): for each point of p, the squared distance to its nearest
+// point of q and that point's index, and with both directions the same for
+// each point of q over p; ties to the lowest index.
 //
 // Replaces the TPU kernels pytorch_points_tpu/kernels/distance_tiles.py::
 // _nn_both_kernel (nn_both_directions, the dense chamfer scan) and ::
-// _nn_kernel (nn_one_direction). The TPU fuses both directions into one
-// pass because its grid runs in order on one core and can carry the
-// direction-2 minimum across grid steps; Hopper blocks run in no order, so
-// nn_both_directions is two launches of this kernel, p -> q and q -> p.
+// _nn_kernel (nn_one_direction).
 //
 // Semantics: d in the reference's order ((dx*dx + dy*dy) + dz*dz), each
-// operation rounded on its own (ppt::sqdist3); the scan visits q in index
-// order and takes a point only when strictly closer, so the lowest index
-// wins a tie, as the reference's chunk-min then strict-< fold does. Start
-// (inf, 0), as the reference's accumulators do. Masked points arrive
-// poisoned by the op; the kernel bounds its ragged edges itself (no
-// padding).
+// operation rounded on its own (ppt::sqdist3); each p row gets the
+// lexicographic minimum of (d, q index) and each q row the minimum of (d, p
+// index), which is the reference's lowest-index tie; a row starts at (inf,
+// 0), as the reference's accumulators do. Masked points arrive poisoned by
+// the op; the kernel takes ragged N and M and bounds the tiles' edges
+// itself (no padding).
 //
-// On the card: one thread per p point; a block of 256 p points stages q in
-// shared-memory tiles, read by every thread as a broadcast. It is bound by
-// the distance arithmetic and compare (about 10 flops per (p, q) pair):
-// N M pairs per direction, all of them, with no pruning (that is K6).
-#include <math.h>
-
-#include "common.cuh"
+// On the card: the worklist's pairs kernel (nn_pairs.cuh) with every tile
+// pair a candidate and no list. The TPU kernel computes each distance tile
+// once and reduces it along both axes, carrying direction 2 across its
+// sequential grid; here each (p-tile, q-tile) pair is a block that computes
+// its distances once and folds them into both directions, and blocks meet
+// through 64-bit (d, index) keys merged by atomicMin, which is order free
+// and so gives the same bits on every run. K13 is the same kernel with
+// direction 2 turned off. The tile shape follows the grid: a p tile is one
+// slab of the block's rows (1024 rows on 64 threads of 16 rows, even for
+// small clouds: fewer rows a thread pay more for the column reduction), and
+// q is cut into as many tiles as it takes to give about kTargetBlocks
+// blocks. A direction that one block covers
+// whole is written directly (direction 1 when q is one tile; direction 2
+// when p is one tile), and the fill and unpack launches cover only the
+// directions that go through keys. It is bound by instruction issue: 8
+// rounded operations a distance (no FMA), a compare-and-select pair a
+// direction, and a share of the warp's column reduction.
+#include "nn_pairs.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 1024;
+constexpr int kTargetBlocks = 792;  // about 6 blocks an SM on 132 SMs
+constexpr int kRowsPerThread = 16;
+constexpr int kThreads = 64;
 
-__global__ void __launch_bounds__(kThreads)
-    nn_dense_kernel(const float* __restrict__ p, const float* __restrict__ q,
-                    int n, int m, float* __restrict__ out_d,
-                    int* __restrict__ out_i) {
-  __shared__ float tile[kTile * 3];
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = i < n;
-  const float* qb = q + static_cast<size_t>(b) * m * 3;
-  const size_t row = static_cast<size_t>(b) * n + i;
-
-  float px = 0.f, py = 0.f, pz = 0.f;
-  if (active) {
-    px = p[3 * row];
-    py = p[3 * row + 1];
-    pz = p[3 * row + 2];
-  }
-  float best = INFINITY;
-  int best_i = 0;
-  for (int base = 0; base < m; base += kTile) {
-    const int len = min(kTile, m - base);
-    __syncthreads();
-    for (int t = threadIdx.x; t < 3 * len; t += kThreads)
-      tile[t] = qb[3 * static_cast<size_t>(base) + t];
-    __syncthreads();
-    if (active) {
-      for (int t = 0; t < len; ++t) {
-        const float d = ppt::sqdist3(tile[3 * t], tile[3 * t + 1],
-                                     tile[3 * t + 2], px, py, pz);
-        if (d < best) {
-          best = d;
-          best_i = base + t;
-        }
-      }
-    }
-  }
-  if (active) {
-    out_d[row] = best;
-    out_i[row] = best_i;
-  }
+cudaError_t launch_dense(const float* p, const float* q, int b, int n,
+                         int m, bool both, unsigned long long* keys,
+                         float* d1, int* i1, float* d2, int* i2,
+                         cudaStream_t stream) {
+  constexpr int tn = kRowsPerThread * kThreads;
+  const int ni = (n + tn - 1) / tn;
+  const long long want = (kTargetBlocks + static_cast<long long>(b) * ni - 1) /
+                         (static_cast<long long>(b) * ni);
+  const int max_nj = (m + 7) / 8;
+  const int nj0 = static_cast<int>(want < max_nj ? want : max_nj);
+  const int tm = ((m + nj0 - 1) / nj0 + 7) / 8 * 8;
+  const int nj = (m + tm - 1) / tm;
+  const bool direct1 = nj == 1;
+  const bool direct2 = both && ni == 1;
+  // keys: direction 1 at [0, n1), direction 2 at [n1, total)
+  const long long n1 = static_cast<long long>(b) * n;
+  const long long total = both ? n1 + static_cast<long long>(b) * m : n1;
+  const long long lo = direct1 ? n1 : 0;
+  const long long hi = both && !direct2 ? total : n1;
+  fill_range(keys, lo, hi, stream);
+  const dim3 grid(ni * nj, b);
+  if (both)
+    nn_pairs_kernel<kRowsPerThread, kThreads, true, true>
+        <<<grid, kThreads, 0, stream>>>(
+        p, q, nullptr, nullptr, n, m, tn, tm, nj, 0, keys, keys + n1,
+        direct1 ? d1 : nullptr, direct1 ? i1 : nullptr,
+        direct2 ? d2 : nullptr, direct2 ? i2 : nullptr);
+  else
+    nn_pairs_kernel<kRowsPerThread, kThreads, true, false>
+        <<<grid, kThreads, 0, stream>>>(
+        p, q, nullptr, nullptr, n, m, tn, tm, nj, 0, keys, nullptr,
+        direct1 ? d1 : nullptr, direct1 ? i1 : nullptr, nullptr, nullptr);
+  unpack_range(keys, lo, hi, n1, d1, i1, d2, i2, stream);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// p: float [B, N, 3]; q: float [B, M, 3]; out_d: float [B, N]; out_i: int
-// [B, N].
+// p: float [B, N, 3]; q: float [B, M, 3]; both: 1 for both directions (K5),
+// 0 for p -> q only (K13); keys: scratch of B N 64-bit keys, B (N + M)
+// with both; out: d1
+// float, i1 int [B, N]; with both, d2 float, i2 int [B, M]. M >= 1, and N
+// >= 1 with both. One to three launches: the keys to (inf, 0), the pairs,
+// the unpack, the first and last only for a direction that needs keys.
 extern "C" int ppt_nn_dense(const float* p, const float* q, int b, int n,
-                            int m, float* out_d, int* out_i,
+                            int m, int both, unsigned long long* keys,
+                            float* d1, int* i1, float* d2, int* i2,
                             cudaStream_t stream) {
+  if (m < 1 || (both && n < 1) || b > 65535) return cudaErrorInvalidValue;
   if (b == 0 || n == 0) return cudaSuccess;
-  const dim3 grid((n + kThreads - 1) / kThreads, b);
-  nn_dense_kernel<<<grid, kThreads, 0, stream>>>(p, q, n, m, out_d, out_i);
-  return cudaGetLastError();
+  return launch_dense(p, q, b, n, m, both != 0, keys, d1, i1, d2, i2, stream);
 }

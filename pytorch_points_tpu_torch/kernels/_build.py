@@ -47,16 +47,17 @@ _SIGNATURES = {
                               _P, _P],
     # features, idx, b, n, k, c, out, stream
     "ppt_gather_rows": [_P, _P, _I, _I, _I, _I, _P, _P],
-    # qry, sup, b, nq, ns, c, k, out_d, out_i, stream
-    "ppt_knn": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # qry, sup, b, nq, ns, c, k, lists, out_d, out_i, stream
+    "ppt_knn": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "ppt_knn_scratch_keys": [_I, _I, _I, _P],
     # qry, sup, centers, b, q_pad, m_pad, k, k_pad, unroll, boxes, out_d,
     # out_i, counts, stats, codes, lists, stream
     "ppt_knn_ring": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                      _P, _P, _P],
     # idx, updates, b, k, n, c, scratch, out, stream
     "ppt_scatter_add": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
-    # p, q, b, n, m, out_d, out_i, stream
-    "ppt_nn_dense": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # p, q, b, n, m, both, keys, d1, i1, d2, i2, stream
+    "ppt_nn_dense": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     # pp, qp, codes, count, b, n_rows, n_cols, tn, tm, k_max, keys, d1, i1,
     # d2, i2, stream
     "ppt_nn_worklist": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,

@@ -120,14 +120,19 @@ ball_query_cuda.launches = 0
 
 def ball_query(xyz: torch.Tensor, centroids: torch.Tensor, radius: float,
                nsample: int, mask: torch.Tensor | None = None,
+               tp: int | None = None, tm: int | None = None,
                counts: torch.Tensor | None = None, impl: str = "auto"):
     """[B,N,3] support, [B,P,3] centroids -> (idx [B,P,nsample], cnt [B,P]).
 
     ``mask`` ([B,N] bool) marks valid support points; invalid ones are
     poisoned far away (sign -1) before the scan, as the reference does.
+    ``tp`` and ``tm`` choose the reference's grid or resident form and its
+    tiles; the forms are bitwise equal, and the one CUDA kernel gives those
+    bits for any of them, so they are accepted and change nothing.
     ``counts`` ([B,P] int32) receives the kernel's work counter
     (:func:`scan_counts`).
     """
+    del tp, tm  # every form and tiling gives the same bits
     xyz = poison_points(xyz.to(torch.float32), mask, sign=-1.0)
     centroids = centroids.to(torch.float32)
     if dispatch.resolve(impl, xyz, "ball_query") == "cuda":

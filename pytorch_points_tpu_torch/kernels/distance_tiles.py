@@ -5,8 +5,12 @@ CUDA kernels: ``csrc/nn_dense.cu``, which replaces the TPU kernels
 ``pytorch_points_tpu/kernels/distance_tiles.py::_nn_both_kernel``
 (``nn_both_directions``) and ``::_nn_kernel`` (``nn_one_direction``);
 ``csrc/nn_worklist.cu``, which replaces ``::_nn_worklist_kernel``
-(``_run_worklist``, via ``nn_both_directions_pruned``). The header notes
-there say what bounds them on the card.
+(``_run_worklist``, via ``nn_both_directions_pruned``). Both sources share
+one pairs kernel (``csrc/nn_pairs.cuh``): a block a (p-tile, q-tile) pair,
+each distance computed once and folded into both directions, blocks
+merged through 64-bit (d, position) keys; the dense NN runs it over every
+tile pair, the worklist over its list. The header notes there say what
+bounds them on the card.
 
 The Morton helpers shared with ``nn_sorted`` (codes, poison padding) live
 here, as in the JAX package.
@@ -55,31 +59,63 @@ def nn_one_direction_torch(p: torch.Tensor, q: torch.Tensor):
     return dist, idx
 
 
-def nn_one_direction_cuda(p: torch.Tensor, q: torch.Tensor):
-    """Launch the CUDA kernel: same contract as
-    :func:`nn_one_direction_torch`."""
+def _launch_dense(p: torch.Tensor, q: torch.Tensor, both: bool):
     b, n, _ = p.shape
     m = q.shape[1]
     _build.require(p, "nn_dense p", torch.float32, (b, n, 3))
     _build.require(q, "nn_dense q", torch.float32, (b, m, 3))
-    dist = torch.empty((b, n), dtype=torch.float32, device=p.device)
-    idx = torch.empty((b, n), dtype=torch.int32, device=p.device)
+    if m < 1 or (both and n < 1):
+        raise ValueError(f"nn_dense: clouds of {n} and {m} points; the "
+                         "other cloud of each direction must be non-empty")
+    dev = p.device
+    # the keys of the directions the kernel computes: p's, and q's with both
+    keys = torch.empty(b * (n + m if both else n), dtype=torch.int64,
+                       device=dev)
+    d1 = torch.empty((b, n), dtype=torch.float32, device=dev)
+    i1 = torch.empty((b, n), dtype=torch.int32, device=dev)
+    d2 = i2 = None
+    if both:
+        d2 = torch.empty((b, m), dtype=torch.float32, device=dev)
+        i2 = torch.empty((b, m), dtype=torch.int32, device=dev)
     err = _ppt_nn_dense(
-        p.data_ptr(), q.data_ptr(), b, n, m, dist.data_ptr(), idx.data_ptr(),
+        p.data_ptr(), q.data_ptr(), b, n, m, int(both), keys.data_ptr(),
+        d1.data_ptr(), i1.data_ptr(), _build.ptr(d2), _build.ptr(i2),
         _build.stream(p),
     )
     _build.check(err, "ppt_nn_dense")
+    return (d1, i1, d2, i2) if both else (d1, i1)
+
+
+def nn_one_direction_cuda(p: torch.Tensor, q: torch.Tensor):
+    """Launch the CUDA kernel with direction 2 off (K13): same contract as
+    :func:`nn_one_direction_torch`."""
+    out = _launch_dense(p, q, False)
     nn_one_direction_cuda.launches += 1
-    return dist, idx
+    return out
+
+
+def nn_both_directions_cuda(p: torch.Tensor, q: torch.Tensor):
+    """Launch the CUDA kernel, both directions in one pass (K5): the same
+    bits as ``nn_one_direction_torch(p, q)`` and ``(q, p)``."""
+    out = _launch_dense(p, q, True)
+    nn_both_directions_cuda.launches += 1
+    return out
 
 
 nn_one_direction_cuda.launches = 0
+nn_both_directions_cuda.launches = 0
 
 
-def nn_one_direction(p: torch.Tensor, q: torch.Tensor, impl: str = "auto"):
+def nn_one_direction(p: torch.Tensor, q: torch.Tensor, tn: int | None = None,
+                     tm: int | None = None, impl: str = "auto"):
     """For each p point, (min squared distance over q, argmin index):
     [B,N,3], [B,M,3] -> (dist [B,N] f32, idx [B,N] int32), lowest-index
-    ties. Masked points arrive poisoned (``ops.chamfer.nndistance``)."""
+    ties. Masked points arrive poisoned (``ops.chamfer.nndistance``).
+
+    ``tn`` and ``tm`` are the reference's tile sizes; the result does not
+    depend on them, and the kernel chooses its own tiles, so they are
+    accepted and change nothing."""
+    del tn, tm  # every tiling gives the same bits
     if q.shape[1] < 1:
         raise ValueError("nn_one_direction needs a non-empty q cloud")
     p = p.to(torch.float32)
@@ -89,11 +125,22 @@ def nn_one_direction(p: torch.Tensor, q: torch.Tensor, impl: str = "auto"):
     return nn_one_direction_torch(p, q)
 
 
-def nn_both_directions(p: torch.Tensor, q: torch.Tensor, impl: str = "auto"):
+def nn_both_directions(p: torch.Tensor, q: torch.Tensor,
+                       tn: int | None = None, tm: int | None = None,
+                       impl: str = "auto"):
     """Bidirectional NN: (dist1 [B,N], idx1, dist2 [B,M], idx2), the
-    reference nmdistance contract. Two one-direction passes (p -> q,
-    q -> p) in place of the TPU's fused tile reduction."""
-    return (*nn_one_direction(p, q, impl), *nn_one_direction(q, p, impl))
+    reference nmdistance contract. On the card one pass computes each
+    distance once and folds it into both directions; the plain version is
+    two one-direction passes, p -> q and q -> p. ``tn`` and ``tm`` as in
+    :func:`nn_one_direction`."""
+    del tn, tm  # every tiling gives the same bits
+    if p.shape[1] < 1 or q.shape[1] < 1:
+        raise ValueError("nn_both_directions needs two non-empty clouds")
+    p = p.to(torch.float32)
+    q = q.to(torch.float32)
+    if dispatch.resolve(impl, p, "nn_dense") == "cuda":
+        return nn_both_directions_cuda(p.contiguous(), q.contiguous())
+    return (*nn_one_direction_torch(p, q), *nn_one_direction_torch(q, p))
 
 
 # ---------------------------------------------------------------------------
@@ -359,7 +406,7 @@ def nn_both_directions_pruned(p: torch.Tensor, q: torch.Tensor,
     tile pair is a candidate."""
     plan = pruned_plan(p, q, tn, tm)
     if bool((plan["count"] > plan["k_max"]).any()):
-        return nn_both_directions(p, q, impl)
+        return nn_both_directions(p, q, impl=impl)
     b, n = plan["perm_p"].shape
     m = plan["perm_q"].shape[1]
     (d1s, i1s, d2s, i2s), _ = _run_worklist(

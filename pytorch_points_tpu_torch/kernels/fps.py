@@ -105,13 +105,14 @@ def fps_step_floor(n: int, iters: int = 4096,
 def furthest_point_sample(xyz: torch.Tensor, k: int,
                           mask: torch.Tensor | None = None,
                           seed_idx: torch.Tensor | None = None,
-                          impl: str = "auto"):
-    """[B,N,3] -> (idx [B,k] int32, coords [B,k,3] f32).
+                          emit_coords: bool = False, impl: str = "auto"):
+    """[B,N,3] -> idx [B,k] int32, or (idx, coords [B,k,3] f32) with
+    ``emit_coords=True``, as the reference returns them.
 
-    The coordinates are bitwise equal to gathering ``xyz`` at ``idx``.
-    ``mask`` ([B,N] bool) marks valid points; masked points are never
-    selected while a valid one is left. ``seed_idx`` ([B] int32) forces the
-    first selection per cloud.
+    The coordinates are bitwise equal to gathering ``xyz`` at ``idx`` (the
+    kernel writes them as it selects). ``mask`` ([B,N] bool) marks valid
+    points; masked points are never selected while a valid one is left.
+    ``seed_idx`` ([B] int32) forces the first selection per cloud.
     """
     if xyz.ndim != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"expected [B,N,3], got {tuple(xyz.shape)}")
@@ -119,6 +120,9 @@ def furthest_point_sample(xyz: torch.Tensor, k: int,
     if dispatch.resolve(impl, xyz, "fps") == "cuda":
         if seed_idx is not None:
             seed_idx = seed_idx.to(torch.int32).contiguous()
-        return fps_cuda(xyz.contiguous(), k,
-                        None if mask is None else mask.contiguous(), seed_idx)
-    return fps_torch(xyz, k, mask, seed_idx)
+        idx, coords = fps_cuda(xyz.contiguous(), k,
+                               None if mask is None else mask.contiguous(),
+                               seed_idx)
+    else:
+        idx, coords = fps_torch(xyz, k, mask, seed_idx)
+    return (idx, coords) if emit_coords else idx

@@ -47,9 +47,13 @@ def gather_rows_cuda(features: torch.Tensor, idx: torch.Tensor):
 gather_rows_cuda.launches = 0
 
 
-def gather_rows(features: torch.Tensor, idx: torch.Tensor,
+def gather_rows(features: torch.Tensor, idx: torch.Tensor, tk: int = 2048,
                 impl: str = "auto"):
-    """[B,N,C] features, [B,K] indices -> [B,K,C], exact."""
+    """[B,N,C] features, [B,K] indices -> [B,K,C], exact.
+
+    ``tk`` is the reference's tile of rows; the result does not depend on
+    it, so it is accepted and changes nothing."""
+    del tk  # every tiling gives the same rows
     if dispatch.resolve(impl, features, "gather") == "cuda":
         return gather_rows_cuda(features.contiguous(), _build.int32(idx))
     return gather_rows_torch(features, idx)

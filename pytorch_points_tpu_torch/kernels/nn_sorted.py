@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from pytorch_points_tpu_torch.core.masking import BIG_COORD
+from pytorch_points_tpu_torch.core.masking import BIG_COORD, poison_points
 from pytorch_points_tpu_torch.kernels import _build, dispatch
 from pytorch_points_tpu_torch.kernels.distance_tiles import (
     _PLAIN_PAIRS,
@@ -392,29 +392,67 @@ def nn_scan(ps: torch.Tensor, qs: torch.Tensor, qid: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _band_bounds(ps, qs, tn, tm, tb, impl):
+    """Sorted clouds padded with poison rows to a multiple of max(tn, tm,
+    tb), and each direction's band bound (:func:`band_min`):
+    (pp, qp, d_ub1, d_ub2)."""
+    align = max(tn, tm, tb)
+    pp = _pad_poison(ps, _round_up(ps.shape[1], align), 1.0)
+    qp = _pad_poison(qs, _round_up(qs.shape[1], align), -1.0)
+    d_ub1 = band_min(pp, qp, tb=tb, tbq=TBQ, stride=STRIDE, impl=impl)
+    d_ub2 = band_min(qp, pp, tb=tb, tbq=TBQ, stride=STRIDE, impl=impl)
+    return pp, qp, d_ub1, d_ub2
+
+
+def _band_bounds_masked(p, q, pv, qv, tn, tm, tb, impl):
+    """:func:`_band_bounds` for poisoned clouds with validity pv [B,N], qv
+    [B,M] bool: valid points sorted over the valid AABB with the poison
+    last, band windows centred by the valid counts
+    (:func:`band_min_dynamic`), bound -1 on poisoned and padding rows.
+    (pp, qp, perm_p, perm_q, pvs, qvs, d_ub1, d_ub2), pvs and qvs the sorted
+    validity padded with False."""
+    n, m = p.shape[1], q.shape[1]
+    ps, perm_p, pvs = sort_by_morton_masked(p, pv)
+    qs, perm_q, qvs = sort_by_morton_masked(q, qv)
+    align = max(tn, tm, tb)
+    n_pad, m_pad = _round_up(n, align), _round_up(m, align)
+    pp = _pad_poison(ps, n_pad, 1.0)
+    qp = _pad_poison(qs, m_pad, -1.0)
+    pvs = torch.nn.functional.pad(pvs, (0, n_pad - n))
+    qvs = torch.nn.functional.pad(qvs, (0, m_pad - m))
+    vp, vq = pv.sum(dim=1), qv.sum(dim=1)
+    c1 = _band_centers(vp, vq, n_pad // tb, m_pad // tb, tb)
+    c2 = _band_centers(vq, vp, m_pad // tb, n_pad // tb, tb)
+    d_ub1 = torch.where(pvs, band_min_dynamic(pp, qp, c1, tb, impl), -1.0)
+    d_ub2 = torch.where(qvs, band_min_dynamic(qp, pp, c2, tb, impl), -1.0)
+    return pp, qp, perm_p, perm_q, pvs, qvs, d_ub1, d_ub2
+
+
 def _nn_sorted_space(ps, pid, qs, qid, impl):
     """Both directions on sorted clouds carrying ids [B,N] int32: rows in
     the given order, each the (distance, lowest id) of its NN."""
     n, m = ps.shape[1], qs.shape[1]
-    align = max(TN, TM, TB)
-    n_pad, m_pad = _round_up(n, align), _round_up(m, align)
-    pp = _pad_poison(ps, n_pad, 1.0)
-    qp = _pad_poison(qs, m_pad, -1.0)
-    d_ub1 = band_min(pp, qp, tb=TB, tbq=TBQ, stride=STRIDE, impl=impl)
-    d_ub2 = band_min(qp, pp, tb=TB, tbq=TBQ, stride=STRIDE, impl=impl)
+    pp, qp, d_ub1, d_ub2 = _band_bounds(ps, qs, TN, TM, TB, impl)
     # Padding rows need no NN: no candidate at all (their bound is -1).
     d_ub1[:, n:] = -1.0
     d_ub2[:, m:] = -1.0
-    d1, i1 = nn_scan(pp, qp, _pad_ids(qid, m_pad), d_ub1, impl=impl)
-    d2, i2 = nn_scan(qp, pp, _pad_ids(pid, n_pad), d_ub2, impl=impl)
+    d1, i1 = nn_scan(pp, qp, _pad_ids(qid, qp.shape[1]), d_ub1, impl=impl)
+    d2, i2 = nn_scan(qp, pp, _pad_ids(pid, pp.shape[1]), d_ub2, impl=impl)
     return d1[:, :n], i1[:, :n], d2[:, :m], i2[:, :m]
 
 
-def nndistance_presorted(ps: torch.Tensor, qs: torch.Tensor,
+def nndistance_presorted(ps: torch.Tensor, qs: torch.Tensor, tn: int = TN,
+                         tm: int = TM, ft: int = FT, tb: int = TB,
                          impl: str = "auto"):
     """Both directions on clouds already Morton-sorted: (d1 [B,N], i1,
     d2 [B,M], i2) in the given order, indices into the given other cloud,
-    ties to the lowest of them; equal to the dense kernel on these clouds."""
+    ties to the lowest of them; equal to the dense kernel on these clouds.
+
+    ``tn``, ``tm``, ``ft`` and ``tb`` are the reference's resident tiles,
+    fine sub-tiles and band tile; the result does not depend on them (the
+    scan here decides its candidates itself, in its own tiles), so they are
+    accepted and change nothing."""
+    del tn, tm, ft, tb  # every tiling gives the same bits
     b, n, _ = ps.shape
     m = qs.shape[1]
 
@@ -435,10 +473,18 @@ def _unpermute_rows(perm, d, i, n, impl):
     return out[..., 0], out[..., 1].to(torch.int32)
 
 
-def nndistance_indexed(p: torch.Tensor, q: torch.Tensor, impl: str = "auto"):
+def nndistance_indexed(p: torch.Tensor, q: torch.Tensor, tn: int = TN,
+                       tm: int = TM, ft: int = FT, tb: int = TB,
+                       impl: str = "auto"):
     """Bidirectional NN in ORIGINAL order with the reference's tie-breaks:
     the dense ``nn_both_directions(p, q)`` contract, served by the pruned
-    scan. (d1 [B,N], i1 int32, d2 [B,M], i2)."""
+    scan. (d1 [B,N], i1 int32, d2 [B,M], i2).
+
+    ``tn``, ``tm``, ``ft`` and ``tb`` are the reference's resident tiles,
+    fine sub-tiles and band tile; the result does not depend on them (the
+    scan here decides its candidates itself, in its own tiles), so they are
+    accepted and change nothing."""
+    del tn, tm, ft, tb  # every tiling gives the same bits
     n, m = p.shape[1], q.shape[1]
     ps, perm_p = sort_by_morton(p)
     qs, perm_q = sort_by_morton(q)
@@ -448,7 +494,8 @@ def nndistance_indexed(p: torch.Tensor, q: torch.Tensor, impl: str = "auto"):
     return d1, i1, d2, i2
 
 
-def nndistance_indexed_masked(p: torch.Tensor, q: torch.Tensor,
+def nndistance_indexed_masked(p: torch.Tensor, q: torch.Tensor, tn: int = TN,
+                              tm: int = TM, ft: int = FT, tb: int = TB,
                               impl: str = "auto"):
     """As :func:`nndistance_indexed` for POISONED clouds
     (``core.masking.poison_points``): validity is |x0| < BIG_COORD, valid
@@ -461,27 +508,24 @@ def nndistance_indexed_masked(p: torch.Tensor, q: torch.Tensor,
     The reference runs its resident scan over a compacted pair list of
     static size and, past that budget, falls back to the dense kernel with
     a ``lax.cond``. The port's scan visits its candidates directly and
-    needs no budget, so that fallback has no counterpart."""
+    needs no budget, so that fallback has no counterpart.
+
+    ``tn``, ``tm``, ``ft`` and ``tb`` are the reference's resident tiles,
+    fine sub-tiles and band tile; the result does not depend on them (the
+    scan here decides its candidates itself, in its own tiles), so they are
+    accepted and change nothing."""
+    del tn, tm, ft, tb  # every tiling gives the same bits
     p = p.to(torch.float32)
     q = q.to(torch.float32)
     n, m = p.shape[1], q.shape[1]
     pv = p[..., 0].abs() < BIG_COORD
     qv = q[..., 0].abs() < BIG_COORD
-    ps, perm_p, pvs = sort_by_morton_masked(p, pv)
-    qs, perm_q, qvs = sort_by_morton_masked(q, qv)
-    align = max(TN, TM, TB)
-    n_pad, m_pad = _round_up(n, align), _round_up(m, align)
-    pp = _pad_poison(ps, n_pad, 1.0)
-    qp = _pad_poison(qs, m_pad, -1.0)
-    pvs = torch.nn.functional.pad(pvs, (0, n_pad - n))
-    qvs = torch.nn.functional.pad(qvs, (0, m_pad - m))
-    vp, vq = pv.sum(dim=1), qv.sum(dim=1)
-    c1 = _band_centers(vp, vq, n_pad // TB, m_pad // TB, TB)
-    c2 = _band_centers(vq, vp, m_pad // TB, n_pad // TB, TB)
-    d_ub1 = torch.where(pvs, band_min_dynamic(pp, qp, c1, TB, impl), -1.0)
-    d_ub2 = torch.where(qvs, band_min_dynamic(qp, pp, c2, TB, impl), -1.0)
-    d1s, i1s = nn_scan(pp, qp, _pad_ids(perm_q, m_pad), d_ub1, impl=impl)
-    d2s, i2s = nn_scan(qp, pp, _pad_ids(perm_p, n_pad), d_ub2, impl=impl)
+    pp, qp, perm_p, perm_q, pvs, qvs, d_ub1, d_ub2 = _band_bounds_masked(
+        p, q, pv, qv, TN, TM, TB, impl)
+    d1s, i1s = nn_scan(pp, qp, _pad_ids(perm_q, qp.shape[1]), d_ub1,
+                       impl=impl)
+    d2s, i2s = nn_scan(qp, pp, _pad_ids(perm_p, pp.shape[1]), d_ub2,
+                       impl=impl)
     # Poisoned rows saw no candidate and hold (inf, SENTINEL): (0, 0) before
     # the un-permute, as the reference sets them, which is also the public
     # contract of a masked row.
@@ -493,7 +537,9 @@ def nndistance_indexed_masked(p: torch.Tensor, q: torch.Tensor,
     return d1, i1, d2, i2
 
 
-def nndistance_sums(p: torch.Tensor, q: torch.Tensor, impl: str = "auto"):
+def nndistance_sums(p: torch.Tensor, q: torch.Tensor, tn: int = TN,
+                    tm: int = TM, ft: int = FT, tb: int = TB,
+                    impl: str = "auto"):
     """Loss-only twin of :func:`nndistance_indexed`: per-cloud sums of the
     NN distances, with no row un-permute.
 
@@ -501,9 +547,105 @@ def nndistance_sums(p: torch.Tensor, q: torch.Tensor, impl: str = "auto"):
     tgt_q)``: row r of ``rows_p`` (the sorted p cloud) has its nearest
     ORIGINAL q index at ``i1o[b, r]`` and came from original row
     ``tgt_p[b, r]``; likewise for q.
+
+    ``tn``, ``tm``, ``ft`` and ``tb`` are the reference's resident tiles,
+    fine sub-tiles and band tile; the result does not depend on them (the
+    scan here decides its candidates itself, in its own tiles), so they are
+    accepted and change nothing.
     """
+    del tn, tm, ft, tb  # every tiling gives the same bits
     ps, perm_p = sort_by_morton(p)
     qs, perm_q = sort_by_morton(q)
     d1s, i1s, d2s, i2s = _nn_sorted_space(ps, perm_p, qs, perm_q, impl)
     return (d1s.sum(dim=-1), d2s.sum(dim=-1), i1s, i2s, ps, qs, perm_p,
             perm_q)
+
+
+def nndistance_sorted(p: torch.Tensor, q: torch.Tensor, tn: int = TN,
+                      tm: int = TM, ft: int = FT, tb: int = TB,
+                      impl: str = "auto"):
+    """Bidirectional NN distances in Morton-sorted space, the reference's
+    six outputs: (d1 [B,N], i1 [B,N], d2 [B,M], i2 [B,M], perm_p [B,N],
+    perm_q [B,M]) where d1, i1 are per SORTED p point (p[perm_p]) with i1
+    indexing the SORTED q cloud, and vice versa; equal to the dense kernel
+    on the sorted clouds, ties included. ``tn``, ``tm``, ``ft`` and ``tb``
+    as in :func:`nndistance_presorted`: accepted, and they change
+    nothing."""
+    ps, perm_p = sort_by_morton(p)
+    qs, perm_q = sort_by_morton(q)
+    d1, i1, d2, i2 = nndistance_presorted(ps, qs, tn, tm, ft, tb, impl=impl)
+    return d1, i1, d2, i2, perm_p, perm_q
+
+
+# ---------------------------------------------------------------------------
+# worklist telemetry
+# ---------------------------------------------------------------------------
+
+# The reference's static worklist budget, a share of all tile pairs.
+_BUDGET_FRAC = 0.62
+
+
+def _worklist_summary(cand1: torch.Tensor, cand2: torch.Tensor) -> dict:
+    """The reference's budget arithmetic over the two candidate masks
+    [B, nI, nJ]: each direction's candidate pairs a cloud, the budget
+    ``k_max``, the occupancy (the largest count over k_max) and whether
+    some count exceeds the budget."""
+    ni, nj = cand1.shape[1], cand1.shape[2]
+    k_max = min(ni * nj, int(_BUDGET_FRAC * ni * nj) + ni)
+    c1 = cand1.reshape(cand1.shape[0], -1).sum(dim=1, dtype=torch.int32)
+    c2 = cand2.reshape(cand2.shape[0], -1).sum(dim=1, dtype=torch.int32)
+    # count / k_max as the reference's compiled program rounds it: times
+    # the f32 reciprocal of k_max
+    inv = torch.tensor(1.0 / k_max, dtype=torch.float32, device=c1.device)
+    return {
+        "count1": c1,
+        "count2": c2,
+        "k_max": k_max,
+        "occupancy": torch.maximum(c1.max(), c2.max()).to(torch.float32)
+        * inv,
+        "overflow": (c1 > k_max).any() | (c2 > k_max).any(),
+    }
+
+
+def worklist_stats(p: torch.Tensor, q: torch.Tensor, tn: int = TN,
+                   tm: int = TM, ft: int = FT, tb: int = TB,
+                   impl: str = "auto") -> dict:
+    """Telemetry of the reference's worklist dispatch for
+    :func:`nndistance_indexed` on (p, q), in its arithmetic at the tiles
+    given: each direction's candidate tile pairs a cloud (``count1``,
+    ``count2`` [B] int32), the budget ``k_max``, ``occupancy`` (the largest
+    count over k_max) and ``overflow`` (some count above k_max). The port's
+    scan needs no budget (it visits its candidates directly), so these
+    numbers say what the reference would run and decide nothing here. The
+    band bound (:func:`band_min`) runs on the card for a CUDA tensor; the
+    candidate masks are the reference's (:func:`_cand_mask`, torch ops)."""
+    ps, _ = sort_by_morton(p.to(torch.float32))
+    qs, _ = sort_by_morton(q.to(torch.float32))
+    pp, qp, d_ub1, d_ub2 = _band_bounds(ps, qs, tn, tm, tb, impl)
+    return _worklist_summary(_cand_mask(pp, qp, d_ub1, ft, tn, tm),
+                             _cand_mask(qp, pp, d_ub2, ft, tn, tm))
+
+
+def worklist_stats_masked(p: torch.Tensor, q: torch.Tensor,
+                          p_mask: torch.Tensor | None,
+                          q_mask: torch.Tensor | None, tn: int = TN,
+                          tm: int = TM, ft: int = FT, tb: int = TB,
+                          impl: str = "auto") -> dict:
+    """:func:`worklist_stats` for :func:`nndistance_indexed_masked`'s
+    dispatch: valid points sorted over the valid AABB with the poison last,
+    band windows centred by the valid counts (:func:`band_min_dynamic`).
+    Takes the public mask form ([B,N] bool masks, None for all valid), as
+    the reference does."""
+    p = p.to(torch.float32)
+    q = q.to(torch.float32)
+    b, n = p.shape[:2]
+    m = q.shape[1]
+    pv = (torch.ones((b, n), dtype=torch.bool, device=p.device)
+          if p_mask is None else p_mask.to(torch.bool))
+    qv = (torch.ones((b, m), dtype=torch.bool, device=q.device)
+          if q_mask is None else q_mask.to(torch.bool))
+    pp, qp, _, _, _, _, d_ub1, d_ub2 = _band_bounds_masked(
+        poison_points(p, p_mask, sign=1.0),
+        poison_points(q, q_mask, sign=-1.0), pv, qv, tn, tm, tb, impl)
+    return _worklist_summary(_cand_mask(pp, qp, d_ub1, ft, tn, tm),
+                             _cand_mask(qp, pp, d_ub2, ft, tn, tm))

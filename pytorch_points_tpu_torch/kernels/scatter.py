@@ -70,3 +70,25 @@ def scatter_add(idx: torch.Tensor, updates: torch.Tensor, n: int,
     if dispatch.resolve(impl, updates, "scatter") == "cuda":
         return scatter_add_cuda(_build.int32(idx), updates.contiguous(), n)
     return scatter_add_torch(idx, updates, n)
+
+
+def scatter_add_csum(idx: torch.Tensor, updates: torch.Tensor, n: int,
+                     tk: int = 2048, impl: str = "auto"):
+    """The reference's name for the deterministic scatter-add:
+    out[b, idx[b,k], :] += updates[b,k,:], idx [B,K] int, updates [B,K,C]
+    f32 -> [B,n,C] (:func:`scatter_add`, kernel K4). ``tk`` is the
+    reference's tile of updates; the sums do not depend on it here (each
+    row sums in ascending k), so it is accepted and changes nothing."""
+    del tk  # every tiling gives the same sums
+    return scatter_add(idx, updates, n, impl=impl)
+
+
+def scatter_add_csum_t(idx: torch.Tensor, updates: torch.Tensor, n: int,
+                       tk: int = 2048, parts: int = 2, impl: str = "auto"):
+    """The reference's lane-major twin of :func:`scatter_add_csum`, the same
+    function. ``parts`` sets how many bf16 parts the reference's MXU form
+    splits each update into (2: about 2^-16 relative, 3: f32-exact); K4
+    adds f32 updates exactly in ascending k, which is at least as accurate
+    as either, so ``parts`` and ``tk`` are accepted and change nothing."""
+    del tk, parts  # K4's f32 sums are exact to one rounding an add
+    return scatter_add(idx, updates, n, impl=impl)

@@ -25,12 +25,15 @@ Pallas scan reads three channels. Every scan takes any 1 <= k <= Ns.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from pytorch_points_tpu_torch.core.masking import BIG_COORD
 from pytorch_points_tpu_torch.kernels import _build, dispatch, nn_sorted
 
 _ppt_knn = _build.entry("ppt_knn")
+_ppt_knn_scratch_keys = _build.entry("ppt_knn_scratch_keys")
 _ppt_knn_ring = _build.entry("ppt_knn_ring")
 
 # The ring scan serves supports of this size and up: below it the sort and
@@ -69,7 +72,7 @@ def knn_torch(query: torch.Tensor, support: torch.Tensor, k: int):
 
 def knn_cuda(query: torch.Tensor, support: torch.Tensor, k: int):
     """Launch the CUDA kernel: same contract as :func:`knn_torch`, any C,
-    1 <= k <= Ns (passes of 64 above 64)."""
+    1 <= k <= Ns, one pass for every k."""
     b, nq, c = query.shape
     ns = support.shape[1]
     _build.require(query, "knn query", torch.float32, (b, nq, c))
@@ -78,9 +81,17 @@ def knn_cuda(query: torch.Tensor, support: torch.Tensor, k: int):
         raise ValueError(f"knn kernel needs 1 <= k <= Ns={ns}, got {k}")
     d = torch.empty((b, nq, k), dtype=torch.float32, device=query.device)
     idx = torch.empty((b, nq, k), dtype=torch.int32, device=query.device)
+    # the kernel says how much global scratch its lists take at this k
+    keys = ctypes.c_longlong(0)
+    _build.check(_ppt_knn_scratch_keys(b, nq, k, ctypes.byref(keys)),
+                 "ppt_knn_scratch_keys")
+    lists = None
+    if keys.value:
+        lists = torch.empty(keys.value, dtype=torch.int64,
+                            device=query.device)
     err = _ppt_knn(
-        query.data_ptr(), support.data_ptr(), b, nq, ns, c, k, d.data_ptr(),
-        idx.data_ptr(), _build.stream(query),
+        query.data_ptr(), support.data_ptr(), b, nq, ns, c, k,
+        _build.ptr(lists), d.data_ptr(), idx.data_ptr(), _build.stream(query),
     )
     _build.check(err, "ppt_knn")
     knn_cuda.launches += 1
@@ -365,37 +376,62 @@ def _ring(query, support, k, masked, impl, unroll=UNROLL, stats=False):
 
 
 def knn_ring(query: torch.Tensor, support: torch.Tensor, k: int,
+             tq: int = TQ, tm: int = TM, unroll: int = UNROLL,
              impl: str = "auto"):
     """Morton-ring kNN: [B,Nq,3], [B,Ns,3] -> (dist [B,Nq,k], idx int32),
     equal to :func:`knn`'s streaming scan on the same clouds. The support
-    must be clean (no poison rows) and below 2^24 points."""
+    must be clean (no poison rows) and below 2^24 points.
+
+    ``tq``, ``tm`` and ``unroll`` are the reference's query tile, support
+    chunk and extraction unroll; the result does not depend on them (the
+    kernel works in tiles of TQ = TM = 512), so they are accepted and
+    change nothing."""
+    del tq, tm, unroll  # the exact kNN is the same for every tiling
     return _ring(query, support, k, False, impl)[:2]
 
 
 def knn_ring_masked(query: torch.Tensor, support: torch.Tensor, k: int,
+                    tq: int = TQ, tm: int = TM, unroll: int = UNROLL,
                     impl: str = "auto"):
     """Morton-ring kNN for a POISONED support (validity |x0| < BIG_COORD):
     valid rows sort over the valid AABB with the poison last, and each
     query tile's ring starts at a centre scaled into the valid chunks.
-    Equal to the streaming scan on the same poisoned cloud."""
+    Equal to the streaming scan on the same poisoned cloud. ``tq``, ``tm``
+    and ``unroll`` as in :func:`knn_ring`: accepted, and they change
+    nothing."""
+    del tq, tm, unroll  # the exact kNN is the same for every tiling
     return _ring(query, support, k, True, impl)[:2]
 
 
+def _stats_tiles(tq: int, tm: int) -> None:
+    """The stats' counters are per query tile of TQ rows and support chunk
+    of TM rows: other tiles would count other things."""
+    if (tq, tm) != (TQ, TM):
+        raise ValueError(f"the ring stats count tiles of tq={TQ} and tm={TM}"
+                         f" (the kernel's); got tq={tq}, tm={tm}")
+
+
 def _knn_ring_stats_call(query: torch.Tensor, support: torch.Tensor, k: int,
-                         unroll: int = UNROLL, impl: str = "auto"):
+                         tq: int = TQ, tm: int = TM, unroll: int = UNROLL,
+                         impl: str = "auto"):
     """The stats twin: (dist, idx, counters [B,nI,2] int32), counters[...,
     0] the chunks each query tile visited (of nJ), counters[..., 1] the
-    reference's extraction while-loop trips (times ``unroll`` = steps)."""
+    reference's extraction while-loop trips (times ``unroll`` = steps).
+    ``tq`` and ``tm`` must be 512, the tiles the counters count."""
+    _stats_tiles(tq, tm)
     return _ring(query, support, k, False, impl, unroll, True)
 
 
 def knn_ring_stats(query: torch.Tensor, support: torch.Tensor, k: int,
-                   unroll: int = UNROLL, impl: str = "auto"):
+                   tq: int = TQ, tm: int = TM, unroll: int = UNROLL,
+                   impl: str = "auto"):
     """Telemetry of the ring scan: (dist, idx, dict) with visit_rate (the
     share of (query tile, chunk) pairs scanned after the AABB skip),
     visits_per_tile, chunks, trips_per_visit and steps_per_visit, the
-    reference's keys. Reads the counters on the host."""
-    d, ids, counters = _knn_ring_stats_call(query, support, k, unroll, impl)
+    reference's keys. Reads the counters on the host. ``tq`` and ``tm``
+    must be 512: the counters count the kernel's tiles."""
+    d, ids, counters = _knn_ring_stats_call(query, support, k, tq, tm,
+                                            unroll, impl)
     s = counters.to(torch.float64).cpu()
     nj = _round_up(support.shape[1], TM) // TM
     visits = float(s[..., 0].sum())
@@ -424,21 +460,25 @@ def takes_ring(support: torch.Tensor, sorted_ok: bool = True) -> bool:
 
 
 def knn(query: torch.Tensor, support: torch.Tensor, k: int,
-        impl: str = "auto", sorted_ok: bool = True, masked: bool = False):
+        tq: int | None = None, tm: int | None = None, sorted_ok: bool = True,
+        masked: bool = False, impl: str = "auto"):
     """[B,Nq,C], [B,Ns,C] -> (dist [B,Nq,k] squared ascending, idx int32).
 
     Exact, lowest-index ties, any 1 <= k <= Ns. Masked supports arrive
     poisoned (``ops.grouping.knn``) with ``masked=True``. xyz supports of
     ``RING_MIN_NS`` to 2^24 points take the ring scan; ``sorted_ok=False``
     forces the streaming scan (the ring scan's cross-check), which every
-    C != 3 cloud takes.
+    C != 3 cloud takes. ``tq`` and ``tm`` are the reference's streaming
+    tiles: given, they force the streaming scan, as the reference's
+    dispatch does, and otherwise change nothing (the kernel chooses its own
+    split of the work, and the result does not depend on it).
     """
     ns = support.shape[1]
     if k > ns:
         raise ValueError(f"k={k} > support size {ns}")
-    if takes_ring(support, sorted_ok):
+    if tq is None and tm is None and takes_ring(support, sorted_ok):
         ring = knn_ring_masked if masked else knn_ring
-        return ring(query, support, k, impl)
+        return ring(query, support, k, impl=impl)
     query = query.to(torch.float32)
     support = support.to(torch.float32)
     if dispatch.resolve(impl, query, "knn") == "cuda":

@@ -55,11 +55,11 @@ class _NNDistance(torch.autograd.Function):
         p, q, i1, i2 = ctx.saved_tensors
         impl = ctx.impl
         # Direction 1: dist1[i] = |p[i] - q[idx1[i]]|^2
-        diff1 = p - gather_rows(q, i1, impl)
+        diff1 = p - gather_rows(q, i1, impl=impl)
         gp = 2.0 * g1[..., None] * diff1
         gq = scatter_add_auto(i1, -gp, q.shape[1], impl)
         # Direction 2: dist2[j] = |q[j] - p[idx2[j]]|^2
-        diff2 = q - gather_rows(p, i2, impl)
+        diff2 = q - gather_rows(p, i2, impl=impl)
         gq = gq + 2.0 * g2[..., None] * diff2
         gp_scatter = scatter_add_auto(i2, -2.0 * g2[..., None] * diff2,
                                       p.shape[1], impl)
@@ -84,8 +84,8 @@ class _ChamferSumsSorted(torch.autograd.Function):
     def backward(ctx, g1, g2):
         p, q, i1o, i2o, rows_p, rows_q, tgt_p, tgt_q = ctx.saved_tensors
         impl = ctx.impl
-        diff1 = rows_p - gather_rows(q, i1o, impl)  # [B,N,3]
-        diff2 = rows_q - gather_rows(p, i2o, impl)  # [B,M,3]
+        diff1 = rows_p - gather_rows(q, i1o, impl=impl)  # [B,N,3]
+        diff2 = rows_q - gather_rows(p, i2o, impl=impl)  # [B,M,3]
         u1 = 2.0 * g1[:, None, None] * diff1
         u2 = 2.0 * g2[:, None, None] * diff2
         n, m = p.shape[1], q.shape[1]

@@ -55,7 +55,7 @@ class _Knn(torch.autograd.Function):
         query, support, idx = ctx.saved_tensors
         b, nq, k = idx.shape
         flat = idx.reshape(b, nq * k)
-        sel = gather_rows(support, flat, ctx.impl)
+        sel = gather_rows(support, flat, impl=ctx.impl)
         diff = query[:, :, None, :] - sel.reshape(b, nq, k, -1)
         gq = gs = None
         if ctx.needs_input_grad[0]:

@@ -24,7 +24,7 @@ class _Gather(torch.autograd.Function):
     def forward(ctx, features, idx, impl):
         ctx.save_for_backward(idx)
         ctx.n, ctx.impl = features.shape[1], impl
-        return gather_rows(features.detach(), idx, impl)
+        return gather_rows(features.detach(), idx, impl=impl)
 
     @staticmethod
     def backward(ctx, g):
@@ -39,8 +39,8 @@ class _SampleAndGather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xyz, k, mask, seed_idx, impl):
-        idx, coords = fps_kernel.furthest_point_sample(xyz.detach(), k, mask,
-                                                       seed_idx, impl)
+        idx, coords = fps_kernel.furthest_point_sample(
+            xyz.detach(), k, mask, seed_idx, emit_coords=True, impl=impl)
         ctx.save_for_backward(idx)
         ctx.n, ctx.impl = xyz.shape[1], impl
         ctx.mark_non_differentiable(idx)
@@ -67,7 +67,7 @@ class _ScatterAdd(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        return g, None, gather_rows(g.contiguous(), idx, ctx.impl), None
+        return g, None, gather_rows(g.contiguous(), idx, impl=ctx.impl), None
 
 
 def furthest_point_sample(xyz: torch.Tensor, k: int,
@@ -81,7 +81,7 @@ def furthest_point_sample(xyz: torch.Tensor, k: int,
     int32) forces the first selection per cloud.
     """
     return fps_kernel.furthest_point_sample(xyz.detach(), k, mask, seed_idx,
-                                            impl)[0]
+                                            impl=impl)
 
 
 def furthest_point_sample_and_gather(xyz: torch.Tensor, k: int,

@@ -72,8 +72,8 @@ def test_fps_cuda_matches_plain(dev, case):
     xyz, k, mask, seed = fps_inputs(case, b=4)
     xyz, mask, seed = _on(dev, xyz, mask, seed)
     with torch.inference_mode():
-        got = fps.furthest_point_sample(xyz, k, mask, seed, impl="cuda")
-        ref = fps.furthest_point_sample(xyz, k, mask, seed, impl="torch")
+        got = fps.furthest_point_sample(xyz, k, mask, seed, True, impl="cuda")
+        ref = fps.furthest_point_sample(xyz, k, mask, seed, True, impl="torch")
     _assert_same(got, ref)
 
 
@@ -83,16 +83,16 @@ def test_fps_cuda_scratch_path(dev):
     n = fps.BLOCK_POINTS + 100
     (xyz,) = _on(dev, cloud(np.random.default_rng(8), 2, n))
     with torch.inference_mode():
-        got = fps.furthest_point_sample(xyz, 64, impl="cuda")
-        ref = fps.furthest_point_sample(xyz, 64, impl="torch")
+        got = fps.furthest_point_sample(xyz, 64, emit_coords=True, impl="cuda")
+        ref = fps.furthest_point_sample(xyz, 64, emit_coords=True, impl="torch")
     _assert_same(got, ref)
 
 
 def _fps_matches_plain(xyz, k, mask=None, seed=None):
     """K1 bitwise equal to the plain version; returns the plain result."""
     with torch.inference_mode():
-        ref = fps.furthest_point_sample(xyz, k, mask, seed, impl="torch")
-        _assert_same(fps.furthest_point_sample(xyz, k, mask, seed,
+        ref = fps.furthest_point_sample(xyz, k, mask, seed, True, impl="torch")
+        _assert_same(fps.furthest_point_sample(xyz, k, mask, seed, True,
                                                impl="cuda"), ref)
     return ref
 
@@ -229,7 +229,8 @@ def test_ball_query_cuda_path_shapes_match_plain(dev, shape):
     b, n, p, radius = BQ_PATH_SHAPES[shape]
     (xyz,) = _on(dev, cloud(np.random.default_rng(52), b, n))
     with torch.inference_mode():
-        cen = fps.furthest_point_sample(xyz, p, impl="cuda")[1]
+        cen = fps.furthest_point_sample(xyz, p, emit_coords=True,
+                                          impl="cuda")[1]
     _, cnt, _, counts = _bq_both_match_plain(xyz, cen, radius, 32)
     if n == 16384:  # full rows stop early, in whole steps
         assert (counts[cnt == 32] < n).any()
@@ -393,7 +394,7 @@ def test_gather_cuda_past_32_bit_offsets(dev, c):
 @pytest.mark.parametrize("k", [3, 16, 64, 65, 128])
 @pytest.mark.parametrize("kind", ["random", "grid"])
 def test_knn_cuda_matches_plain(dev, k, kind):
-    # k > 64: passes of 64 with a lexicographic floor
+    # one pass for every k: register lists to 16, heaps past it
     rng = np.random.default_rng(4)
     q, s = _on(dev, cloud(rng, 2, 700, kind), cloud(rng, 2, 1100, kind))
     with torch.inference_mode():
@@ -416,6 +417,130 @@ def test_knn_cuda_any_channels_matches_plain(dev, c, k):
         got = topk_scan.knn(q, s, k, impl="cuda")
         ref = topk_scan.knn(q, s, k, impl="torch")
     _assert_same(got, ref)
+
+
+# K8 in one pass: k at the edges of the register lists (4, 8, 16), the
+# shared-memory heaps and the heaps in global scratch (k = 200 and k = Ns
+# past 160 keys); supports of no tile's multiple, one query, one cloud (the
+# support split across a block's warps), the tie grid and a poisoned
+# support (about a quarter of the rows far away, as ops.knn poisons them).
+KNN_EDGE_K = (1, 3, 4, 8, 16, 17, 64, 65, 128, 200, "ns")
+KNN_EDGE_SHAPES = {  # name -> (B, Nq, Ns, kind)
+    "ragged": (3, 333, 1237, "random"),
+    "one_query": (2, 1, 777, "random"),
+    "one_cloud": (1, 2048, 513, "random"),
+    "tie_grid": (2, 700, 1100, "grid"),
+    "poisoned": (2, 500, 900, "random"),
+}
+
+
+def _knn_edge_inputs(shape):
+    b, nq, ns, kind = KNN_EDGE_SHAPES[shape]
+    rng = np.random.default_rng(31)
+    q, s = cloud(rng, b, nq, kind), cloud(rng, b, ns, kind)
+    if shape == "poisoned":
+        mask = torch.from_numpy(rng.uniform(size=(b, ns)) < 0.75)
+        s = poison_points(torch.from_numpy(s), mask, sign=-1.0).numpy()
+    return q, s
+
+
+@pytest.mark.parametrize("k", KNN_EDGE_K)
+@pytest.mark.parametrize("shape", sorted(KNN_EDGE_SHAPES))
+def test_knn_cuda_one_pass_edges_match_plain(dev, shape, k):
+    q, s = _on(dev, *_knn_edge_inputs(shape))
+    k = s.shape[1] if k == "ns" else k
+    with torch.inference_mode():
+        got = topk_scan.knn(q, s, k, impl="cuda")
+        ref = topk_scan.knn(q, s, k, impl="torch")
+    _assert_same(got, ref)
+
+
+@pytest.mark.parametrize("kind", ["random", "grid"])
+@pytest.mark.parametrize("k,c", [(4, 3), (16, 3), (17, 3), (65, 3), (17, 24),
+                                 (65, 24)])
+def test_knn_cuda_split_lists_match_plain(dev, k, c, kind):
+    # few queries over a long support: each query's support splits across
+    # a block's warps (a part holds at least 32 list lengths), and the
+    # parts' register lists or heaps merge by key
+    rng = np.random.default_rng(33)
+    if kind == "grid":  # exact ties across the parts
+        q = (rng.integers(0, 8, (1, 256, c)) / 8).astype(np.float32)
+        s = (rng.integers(0, 8, (1, 6000, c)) / 8).astype(np.float32)
+    else:
+        q = rng.uniform(-1, 1, (1, 256, c)).astype(np.float32)
+        s = rng.uniform(-1, 1, (1, 6000, c)).astype(np.float32)
+    q, s = _on(dev, q, s)
+    with torch.inference_mode():
+        got = topk_scan.knn(q, s, k, impl="cuda", sorted_ok=False)
+        ref = topk_scan.knn(q, s, k, impl="torch", sorted_ok=False)
+    _assert_same(got, ref)
+
+
+@pytest.mark.parametrize("k", [1, 3, 16, 17, 65])
+@pytest.mark.parametrize("c", [1, 2, 33, 96])
+def test_knn_cuda_channel_edges_match_plain(dev, c, k):
+    # the any-C tile: a channel count below, at and past one staged slice
+    # of 32, rows not a multiple of the 32-row register tile, grid ties
+    rng = np.random.default_rng(32)
+    q = (rng.integers(0, 4, (2, 333, c)) / 4).astype(np.float32)
+    s = (rng.integers(0, 4, (2, 1001, c)) / 4).astype(np.float32)
+    s[:, 500:] = rng.standard_normal((2, 501, c))
+    q, s = _on(dev, q, s)
+    with torch.inference_mode():
+        got = topk_scan.knn(q, s, k, impl="cuda")
+        ref = topk_scan.knn(q, s, k, impl="torch")
+    _assert_same(got, ref)
+
+
+# K5 and K13: ragged edges (no tile's multiple), one point on either side,
+# N > M and N < M, more clouds than one.
+NN_DENSE_SHAPES = {  # name -> (B, N, M)
+    "n1": (2, 1, 3001),
+    "m1": (2, 1000, 1),
+    "ragged": (2, 1000, 3001),
+    "wide": (4, 5000, 3001),
+    "one_cloud": (1, 2048, 2048),
+}
+
+
+@pytest.mark.parametrize("kind", ["random", "grid", "masked"])
+@pytest.mark.parametrize("shape", sorted(NN_DENSE_SHAPES))
+def test_nn_dense_cuda_shapes_match_plain(dev, shape, kind):
+    b, n, m = NN_DENSE_SHAPES[shape]
+    p, q = _on(dev, *nn_inputs(kind, n, m, b=b))
+    with torch.inference_mode():
+        both = distance_tiles.nn_both_directions(p, q, impl="cuda")
+        _assert_same(both, distance_tiles.nn_both_directions(p, q,
+                                                             impl="torch"))
+        one = distance_tiles.nn_one_direction(p, q, impl="cuda")
+        _assert_same(one, distance_tiles.nn_one_direction(p, q,
+                                                          impl="torch"))
+        # both directions in one pass equal two one-direction launches
+        back = distance_tiles.nn_one_direction(q, p, impl="cuda")
+        _assert_same(both, (*one, *back))
+
+
+def test_nn_dense_cuda_tie_grid_p_equals_q(dev):
+    # every row's own point at d = +0, and the grid's exact ties around it
+    p, _ = nn_inputs("grid", 3000, 8)
+    (p,) = _on(dev, p)
+    with torch.inference_mode():
+        got = distance_tiles.nn_both_directions(p, p, impl="cuda")
+        ref = distance_tiles.nn_both_directions(p, p, impl="torch")
+    _assert_same(got, ref)
+    assert (got[0] == 0).all() and (got[2] == 0).all()
+
+
+def test_nn_dense_cuda_launch_counts(dev):
+    p, q = _on(dev, *nn_inputs("random", 700, 600))
+    before = (distance_tiles.nn_both_directions_cuda.launches,
+              distance_tiles.nn_one_direction_cuda.launches)
+    with torch.inference_mode():
+        distance_tiles.nn_both_directions(p, q, impl="cuda")
+        distance_tiles.nn_one_direction(p, q, impl="cuda")
+    assert (distance_tiles.nn_both_directions_cuda.launches - before[0],
+            distance_tiles.nn_one_direction_cuda.launches - before[1]) == (
+                1, 1)
 
 
 def test_cuda_kernels_refuse_grad(dev):

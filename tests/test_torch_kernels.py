@@ -49,7 +49,7 @@ def test_fps_matches_pallas(case):
         None if seed is None else jnp.asarray(seed), emit_coords=True,
     )
     idx, coords = fps.furthest_point_sample(_t(xyz), k, _t(mask), _t(seed),
-                                            impl="torch")
+                                            emit_coords=True, impl="torch")
     np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx))
     np.testing.assert_allclose(coords.numpy(), np.asarray(ref_xyz), rtol=RTOL)
     assert idx.dtype == torch.int32 and coords.dtype == torch.float32

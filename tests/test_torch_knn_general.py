@@ -2,7 +2,7 @@
 the JAX package.
 
 * k > 64: the port's plain versions (what a CPU tensor runs, and what the
-  card's passes of 64 and wide ring lists are held to) against the
+  card's one-pass heaps and wide ring lists are held to) against the
   reference's Pallas scans in interpret mode under ``force_impl("pallas")``,
   with the jit caches cleared around it. Indices identical; distances rtol
   1e-6, since XLA's CPU backend contracts some interpret-mode multiply-adds
