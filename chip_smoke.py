@@ -39,7 +39,14 @@ Phases, in order; any failure raises and exits non-zero:
    against the streaming kNN (K8) at B=4 N=16384 with forced ties and
    ragged valid counts, K9 also at config 6 with k = 1, 64 and 65, and each
    ring case with its work counter (the pairs its warps scanned, equal to
-   the plain version's) beside the bound's tile-level pairs; every ball
+   the plain version's) beside the bound's tile-level pairs; both band
+   instances (K6's at the headline, K7 at the masked headline's 75% and
+   ragged valid prefixes, both directions) also through the pipeline's own
+   entry, which computes only the rows before each cloud's live count (-1
+   past it) and, for K7, the window centres itself: bare, then with the
+   kernel's (warp, sub-tile) fold counter equal to the plain version's
+   emulated count, beside the reference's pairs and the issue floor at the
+   reference's work, at the live rows' and at the kernel's own; every ball
    query case (K2 and the instance that emits centred coordinates, at the
    serve shapes B=16 N=2048 and B=32 N=16384, SA2's and the headline's,
    and on a 75%-valid mask with a zero-hit row whose point 0 is masked)
@@ -92,7 +99,7 @@ Phases, in order; any failure raises and exits non-zero:
    Morton-pruned chamfer, forward and backward at B=32 (the JAX package's
    graded headline loss); value and grad must match the plain versions, for
    the loss and for its group term alone (which the loss weighs by 1e-6);
-   then K1's and K6's shares of one traced call's device time;
+   then K1's, K6's and the band's shares of one traced call's device time;
 6. EMD (config 4): earth_mover_distance on B=32 N=2048 standard-normal
    clouds, timed; then its excess over the Hungarian optimum (scipy) on 4
    normal and 4 gaussian-mixture pairs at pop caps 768 and 384. Every
@@ -111,8 +118,9 @@ Phases, in order; any failure raises and exits non-zero:
 10. masked headline: phase 5 on 75% prefix-valid clouds (p_mask = q_mask),
    the chamfer on the "sorted_masked" path (K7 band, then K6's scan, which
    tests its own candidates), with each direction's share of candidate
-   tile pairs and of (warp, tile) pairs the scan visits, and K1's and K6's
-   shares of the device time;
+   tile pairs and of (warp, tile) pairs the scan visits (both from the
+   pipeline's own band stage), and K1's, K6's and K7's shares of the device
+   time;
 11. fused SA front half: ``_bq_group_centered`` forward and backward at the
    serve shape (B=16 N=2048 P=512) and the headline's (B=32 N=16384
    P=2048, FPS centroids): idx and cnt equal to ``ball_query``'s, the
@@ -779,6 +787,84 @@ def k6_cases(torch, tag, ps, qs, qid, d_ub, bare=True):
     return cases
 
 
+def band_cases(torch, name, tag, fn, inputs, b, n, nw, live_rows):
+    """The pipeline's band entry (K6's ``_band_rows``, K7's
+    ``_band_rows_masked``) at one shape: the bare call, as the pipeline
+    launches it (timed first), then the call with the kernel's fold counter
+    ([B, n / tb] int32), which must equal the plain version's emulated
+    count. ``fn(impl, counts)``; ``nw`` window points a row; ``live_rows``
+    the rows the output needs (the others are -1, uncomputed). The bound
+    counts the reference's pairs on the live rows (every window point, 8
+    flops each); the note gives the issue floor at the reference's work
+    (every row, as the reference computes it), at the live rows' and at the
+    kernel's own visited pairs (its counter x 32 rows x BAND_SUB points)."""
+    from pytorch_points_tpu_torch.kernels import nn_sorted as ns
+
+    ops = DIST_FLOPS * live_rows * nw
+    everything = DIST_FLOPS * b * n * nw
+
+    def counted(impl):
+        counts = torch.zeros((b, n // ns.TB), dtype=torch.int32,
+                             device=inputs[0].device)
+        return fn(impl, counts), counts
+
+    def visited(got):
+        return got[1].sum().item() * ns.BAND_WARP_ROWS * ns.BAND_SUB
+
+    def note(got, ms):
+        pairs = visited(got)
+        return (f"band folds {got[1].sum().item()} (warp, sub-tile): "
+                f"{pairs} pairs, {pairs / (live_rows * nw)!r} of the "
+                f"reference's pairs on the live rows ({live_rows} of "
+                f"{b * n} rows); issue floor (8 lane-instructions a pair) "
+                f"at the reference's work (every row) "
+                f"{issue_floor_ms(everything)!r} ms, at the live rows' "
+                f"{issue_floor_ms(ops)!r} ms, at the kernel's own pairs "
+                f"{issue_floor_ms(DIST_FLOPS * pairs)!r} ms")
+
+    return [Case(name, f"{tag} pipeline entry",
+                 lambda impl: fn(impl, None), inputs, ops),
+            Case(name, f"{tag} pipeline entry, fold counter", counted,
+                 inputs, ops, work=visited, note=note)]
+
+
+def sorted_nn_cases(torch, rng, dev):
+    """K6 at the headline's shape: its band through the pipeline's entry
+    and the public one, its scan; the scan also on the masked headline's
+    p->q direction, from the masked pipeline's own band stage."""
+    from pytorch_points_tpu_torch.kernels import nn_sorted
+
+    hb, hn = HEAD["b"], HEAD["n"]
+    hp, hq = (torch.from_numpy(cloud(rng, hb, hn)).to(dev) for _ in range(2))
+    ps, _ = nn_sorted.sort_by_morton(hp)
+    qs, perm_q = nn_sorted.sort_by_morton(hq)
+    d_ub = nn_sorted.band_min(ps, qs, tb=nn_sorted.TB, tbq=nn_sorted.TBQ,
+                              stride=nn_sorted.STRIDE, impl="torch")
+    cases = band_cases(
+        torch, "nn_band", f"headline B{hb} N=M={hn} tbq=128 stride=4",
+        lambda impl, counts: nn_sorted._band_rows(ps, qs, hn, counts=counts,
+                                                  impl=impl),
+        [ps, qs[:, ::nn_sorted.STRIDE]], hb, hn, 3 * nn_sorted.TBQ, hb * hn)
+    cases += [
+        Case("nn_band", f"headline B{hb} N=M={hn} tbq=128 stride=4, public "
+             "band_min",
+             lambda impl: nn_sorted.band_min(
+                 ps, qs, tb=nn_sorted.TB, tbq=nn_sorted.TBQ,
+                 stride=nn_sorted.STRIDE, impl=impl),
+             [ps, qs[:, ::nn_sorted.STRIDE]],
+             DIST_FLOPS * hb * hn * 3 * nn_sorted.TBQ),
+        *k6_cases(torch, f"headline B{hb} N=M={hn}", ps, qs, perm_q, d_ub),
+    ]
+    # the masked headline's p->q direction, as nndistance_indexed_masked
+    # gives it to the scan (its own band stage: poisoned rows at -1)
+    mps, mgs, _, m_perm, _, _, m_ub, _ = nn_sorted._masked_bounds(
+        *masked_head_poisoned(torch, dev), "auto")
+    cases += k6_cases(torch, f"masked headline B{hb} N=M={hn} p->q", mps,
+                      mgs, nn_sorted._pad_ids(m_perm, mgs.shape[1]), m_ub,
+                      bare=False)
+    return cases
+
+
 def training_kernel_cases(torch, rng, dev):
     """Cases of the training paths' kernels: K5 at config 5's shape; K6,
     and K1, K2 and K3 at the headline's; K4 at the backward scatters of
@@ -826,29 +912,7 @@ def training_kernel_cases(torch, rng, dev):
         issue=DIST_FLOPS * ob * on * om))
 
     hb, hn = HEAD["b"], HEAD["n"]
-    hp, hq = t(cloud(rng, hb, hn)), t(cloud(rng, hb, hn))
-    ps, _ = nn_sorted.sort_by_morton(hp)
-    qs, perm_q = nn_sorted.sort_by_morton(hq)
-    d_ub = nn_sorted.band_min(ps, qs, tb=nn_sorted.TB, tbq=nn_sorted.TBQ,
-                              stride=nn_sorted.STRIDE, impl="torch")
-    cases += [
-        Case("nn_band", f"headline B{hb} N=M={hn} tbq=128 stride=4",
-             lambda impl: nn_sorted.band_min(
-                 ps, qs, tb=nn_sorted.TB, tbq=nn_sorted.TBQ,
-                 stride=nn_sorted.STRIDE, impl=impl),
-             [ps, qs[:, ::nn_sorted.STRIDE]],
-             DIST_FLOPS * hb * hn * 3 * nn_sorted.TBQ),
-        *k6_cases(torch, f"headline B{hb} N=M={hn}", ps, qs, perm_q, d_ub),
-    ]
-    # the masked headline's p->q direction, as nndistance_indexed_masked
-    # gives it to the scan (poisoned rows at -1)
-    mps, mgs, c1, _, _, _ = masked_head_clouds(torch, dev)
-    m_ub = torch.where(mps[..., 0].abs() < 2.0e4,
-                       nn_sorted.band_min_dynamic(mps, mgs, c1, impl="torch"),
-                       -1.0)
-    m_ids = torch.arange(hn, dtype=torch.int32, device=dev).expand(hb, hn)
-    cases += k6_cases(torch, f"masked headline B{hb} N=M={hn} p->q", mps,
-                      mgs, m_ids, m_ub, bare=False)
+    cases += sorted_nn_cases(torch, rng, dev)
 
     xyz = t(cloud(rng, b, n))
     cen = fps.furthest_point_sample(xyz, NPOINT1, emit_coords=True,
@@ -899,10 +963,8 @@ def training_kernel_cases(torch, rng, dev):
         cases.append(scatter_case(torch, label, i, u, m))
     # the masked headline's chamfer backward: its two scatters at the real
     # indices of its masked NN (every poisoned point takes one neighbour)
-    pred, gt, pm, gm = masked_head_inputs(torch, dev)
     _, i1, _, i2 = nn_sorted.nndistance_indexed_masked(
-        poison_points(pred, pm, 1.0), poison_points(gt, gm, -1.0),
-        impl="cuda")
+        *masked_head_poisoned(torch, dev), impl="cuda")
     mrng = np.random.default_rng(SEED + 17)
     for label, i in (("p->q indices, into q", i1),
                      ("q->p indices, into p", i2)):
@@ -925,6 +987,16 @@ def masked_head_inputs(torch, dev, valid=None):
     return pred, gt, pm, gm
 
 
+def masked_head_poisoned(torch, dev):
+    """The masked headline's chamfer inputs: pred and gt poisoned (+x and
+    -x) past the prefix masks, as ``chamfer_distance`` hands them to
+    ``nndistance_indexed_masked``."""
+    from pytorch_points_tpu_torch.core.masking import poison_points
+
+    pred, gt, pm, gm = masked_head_inputs(torch, dev)
+    return poison_points(pred, pm, 1.0), poison_points(gt, gm, -1.0)
+
+
 def masked_head_clouds(torch, dev, valid=None):
     """The masked headline's clouds as its chamfer sees them: pred and gt
     poisoned (+x and -x) past the prefix masks, then Morton-sorted over
@@ -945,8 +1017,7 @@ def ring_kernel_cases(torch, dev):
     """K9, K10 and the stats twin at config 6's shapes (K9 also at k = 1,
     64 and 65: a list of 8 in registers, heaps of 64 and 72 in shared
     memory), through their wrappers on the sorted, padded clouds, each with
-    its work counter, which must equal the plain version's; K7 at the
-    masked headline's."""
+    its work counter, which must equal the plain version's."""
     from pytorch_points_tpu_torch.core.masking import poison_points
     from pytorch_points_tpu_torch.kernels import nn_sorted as ns
     from pytorch_points_tpu_torch.kernels import topk_scan as ts
@@ -1012,22 +1083,40 @@ def ring_kernel_cases(torch, dev):
              ring(mwq, mws, rk, wcen), [mwq, mws, wcen],
              stats_of(mwq, mws, rk, wcen), work=work),
     ]
+    return cases
+
+
+def band_dynamic_cases(torch, dev):
+    """K7 at the masked headline's shapes (75% and ragged 50-100% valid
+    prefixes, both directions): the pipeline's entry, which computes only
+    the valid rows and the window centres itself, with its fold counter;
+    then the public ``band_min_dynamic`` on the same clouds."""
+    from pytorch_points_tpu_torch.kernels import nn_sorted as ns
+
+    cases = []
     hb, hn = HEAD["b"], HEAD["n"]
     band_ops = DIST_FLOPS * hb * hn * 3 * ns.TB
     crng = np.random.default_rng(SEED + 11)
     ragged = [crng.integers(hn // 2, hn + 1, hb).tolist() for _ in range(2)]
+    public = []
     for label, valid in (("75% valid", None), ("ragged 50-100% valid",
                                                 ragged)):
-        ps, gs, c1, c2, _, _ = masked_head_clouds(torch, dev, valid)
-        for way, (a, o, c) in (("p->q", (ps, gs, c1)),
-                               ("q->p", (gs, ps, c2))):
-            cases.append(Case(
-                "nn_band_dynamic", f"masked headline B{hb} N=M={hn} "
-                f"{label} {way}",
+        ps, gs, c1, c2, pm, gm = masked_head_clouds(torch, dev, valid)
+        vp, vg = (x.sum(dim=1, dtype=torch.int32) for x in (pm, gm))
+        for way, (a, o, c, va, vo) in (("p->q", (ps, gs, c1, vp, vg)),
+                                       ("q->p", (gs, ps, c2, vg, vp))):
+            tag = f"masked headline B{hb} N=M={hn} {label} {way}"
+            cases += band_cases(
+                torch, "nn_band_dynamic", tag,
+                lambda impl, counts, a=a, o=o, va=va, vo=vo:
+                ns._band_rows_masked(a, o, va, vo, counts=counts, impl=impl),
+                [a, o, va, vo], hb, hn, 3 * ns.TB, va.sum().item())
+            public.append(Case(
+                "nn_band_dynamic", f"{tag}, public band_min_dynamic",
                 lambda impl, a=a, o=o, c=c: ns.band_min_dynamic(a, o, c,
                                                                 impl=impl),
                 [a, o, c], band_ops))
-    return cases
+    return cases + public
 
 
 def shuffled(rng, x):
@@ -1450,6 +1539,7 @@ def phase_kernels(torch, dev):
         cases = kernel_cases(torch, rng, dev)
         cases += training_kernel_cases(torch, rng, dev)
         cases += ring_kernel_cases(torch, dev)
+        cases += band_dynamic_cases(torch, dev)
         cases += worklist_kernel_cases(torch, dev)
         for case in cases:
             hold_against_plain(torch, case, stats)
@@ -1645,21 +1735,21 @@ def headline_terms(pred, gt, impl, pm=None, gm=None):
 def masked_candidate_shares(torch, dev):
     """Each direction's (share of candidate tile pairs, share of (warp,
     tile) pairs the scan's warps visit) on the masked headline's clouds, as
-    nndistance_indexed_masked gives them to the scan, from its counters."""
+    nndistance_indexed_masked gives them to the scan (its own band stage),
+    from the scan's counters."""
     from pytorch_points_tpu_torch.kernels import nn_sorted as ns
 
-    ps, gs, c1, c2, _, _ = masked_head_clouds(torch, dev)
     shares = []
     with torch.inference_mode():
-        for a, o, c in ((ps, gs, c1), (gs, ps, c2)):
+        pp, qp, perm_p, perm_q, _, _, d_ub1, d_ub2 = ns._masked_bounds(
+            *masked_head_poisoned(torch, dev), "auto")
+        for a, o, ids, d_ub in ((pp, qp, perm_q, d_ub1),
+                                (qp, pp, perm_p, d_ub2)):
             b, n = a.shape[:2]
             m = o.shape[1]
-            valid = a[..., 0].abs() < 2.0e4
-            d_ub = torch.where(valid, ns.band_min_dynamic(a, o, c), -1.0)
             counts = torch.zeros((b, n // ns.TN, 2), dtype=torch.int32,
                                  device=dev)
-            ids = torch.arange(m, dtype=torch.int32, device=dev).expand(b, m)
-            ns.nn_scan(a, o, ids, d_ub, counts=counts)
+            ns.nn_scan(a, o, ns._pad_ids(ids, m), d_ub, counts=counts)
             nj = m // ns.TM
             shares.append((counts[..., 0].sum().item() / (b * n // ns.TN * nj),
                            counts[..., 1].sum().item()
@@ -1668,8 +1758,8 @@ def masked_candidate_shares(torch, dev):
 
 
 def headline_shares(torch, what, call):
-    """K1's and K6's (box table and scan) device ms in one traced call of
-    the headline, and their shares of its device busy."""
+    """K1's, K6's (box table and scan) and the band's device ms in one
+    traced call of the headline, and their shares of its device busy."""
     items, counted, marker = traced(torch, call, 2)
     busy = sum(us for us, _ in items.values()) / 1e3 / counted
 
@@ -1679,9 +1769,11 @@ def headline_shares(torch, what, call):
 
     k1 = ms("fps_block_kernel", "fps_stream_kernel")
     k6 = ms("nn_scan_kernel", "nn_boxes_kernel")
+    band = ms("nn_band_kernel")
     print(f"{what}: device busy {busy!r} ms a call; K1 {k1!r} ms (share "
           f"{k1 / busy!r}), K6 scan with its box launch {k6!r} ms (share "
-          f"{k6 / busy!r}){marker}")
+          f"{k6 / busy!r}), band ({'K7' if 'masked' in what else 'K6'}, "
+          f"both directions) {band!r} ms (share {band / busy!r}){marker}")
 
 
 def phase_headline(torch, dev, wrappers, masked=False):

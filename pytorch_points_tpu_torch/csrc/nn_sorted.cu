@@ -3,7 +3,8 @@
 // decides its own candidate tiles from those bounds and scans them.
 //
 // Replaces the TPU kernels pytorch_points_tpu/kernels/nn_sorted.py::
-// _band_kernel (:151, band_min) and ::_nn_resident_kernel (:387,
+// _band_kernel (:151, band_min), ::_band_kernel_pf (:242, band_min_dynamic)
+// and ::_nn_resident_kernel (:387,
 // _run_resident with tie_orig=True), together with the candidate mask the
 // reference builds in XLA in front of the latter (_cand_mask, :316). Both
 // clouds arrive Morton-sorted and padded by the wrapper
@@ -13,12 +14,39 @@
 // squared distance over three consecutive tiles of tbq points of the
 // (stride-subsampled) sorted q, at q-tiles clamp(center + {-1, 0, +1}),
 // with center = i * njq / ni or, for masked clouds (K7), a per-(b, i)
-// centers array. The minimum over any subset of q is an upper bound on the
-// NN distance, and it uses the scan's own arithmetic (ppt::sqdist3), so the
-// bound can never undershoot the distance the scan computes for the true
-// NN: a bound that disagreed with the kernel it prunes for would be
-// unsound. One block per p-tile stages its three windows (9 tbq floats) in
-// shared memory; bound by the distance arithmetic, 3 tbq pairs per point.
+// centres table, or the table _band_centers computes from each cloud's
+// valid counts, computed here in its f32 order. The minimum over any subset
+// of q is an upper bound on the NN distance, and it uses the scan's own
+// arithmetic (ppt::sqdist3), so the bound can never undershoot the
+// distance the scan computes for the true NN: a bound that disagreed with
+// the kernel it prunes for would be unsound.
+//
+// What bounds it: issue, 8 rounded operations a (row, q point) pair (no
+// FMA), a min and a shared load, against 3 tbq pairs a row; the dense form
+// ran near that floor, so the design visits fewer pairs. One block a
+// (p-tile, cloud) stages its window (3 tbq points, a float4 each) in shared
+// memory with the AABB of each sub-tile of kBandSub consecutive window
+// points and of each group of kBandGroup sub-tiles. A warp takes 32
+// Morton-consecutive rows, one a lane. It visits the groups nearest its own
+// box first (key: the squared gap from the warp's box to the group's box,
+// its low ibits replaced by the group index, a unique key; sorted by rank
+// once a warp), the sub-tiles of a group in index order, and folds a
+// sub-tile only if some live lane has lb < acc, lb the squared gap from the
+// lane's row to the sub-tile's box (per axis max(lo - p, p - hi, 0),
+// squared, summed x, y, z, each operation rounded alone, as the scan's
+// candidate test without its factor). This is exact: the gap is a rounded
+// subtraction of the same operands as a distance's, so lb never exceeds the
+// distance to any point of the box, and a skipped sub-tile holds no point
+// below acc; the min over the rest is the dense min, bit for bit, in any
+// order. A group's box holds its sub-tiles', so its gap is never above
+// theirs: a group no lane passes is skipped whole. The warp's gap is never
+// above a lane's (rounding is monotone), so once the smallest key left is
+// at least every lane's acc (the warp max, taken anew after each skipped
+// group), nothing left can pass and the warp stops. Rows at or past a
+// cloud's live count (padding, poison) are written -1 and computed not at
+// all: a tile wholly past it exits at once. counts (null-able) takes the
+// (warp, sub-tile) folds of each block, the kernel's own work;
+// band_visits_torch emulates the order and gives the same count.
 //
 // NN scan (nn_boxes_kernel, then nn_scan_kernel). The candidate set is the
 // reference's: q-tile J (tm points) is scanned for p-tile I (tn rows) if
@@ -69,38 +97,209 @@
 namespace {
 
 constexpr int kBandThreads = 256;
+// Window points a sub-tile (the unit of the skip test and of the fold
+// counter) and sub-tiles a group (the unit of the visiting order):
+// kernels/nn_sorted.py's BAND_SUB and BAND_GROUP.
+constexpr int kBandSub = 16, kBandGroup = 4;
 constexpr int kSentinel = 1 << 30;
+constexpr unsigned kFull = 0xffffffffu;
 
+// Squared gap between boxes, each axis max(lo - a_hi, a_lo - hi, 0),
+// summed x, y, z, every operation rounded alone (a point: a_lo = a_hi).
+__device__ __forceinline__ float gap2(float4 lo, float4 hi, float ax_hi,
+                                      float ay_hi, float az_hi, float ax_lo,
+                                      float ay_lo, float az_lo) {
+  const float gx =
+      fmaxf(fmaxf(__fsub_rn(lo.x, ax_hi), __fsub_rn(ax_lo, hi.x)), 0.f);
+  const float gy =
+      fmaxf(fmaxf(__fsub_rn(lo.y, ay_hi), __fsub_rn(ay_lo, hi.y)), 0.f);
+  const float gz =
+      fmaxf(fmaxf(__fsub_rn(lo.z, az_hi), __fsub_rn(az_lo, hi.z)), 0.f);
+  return __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)),
+                   __fmul_rn(gz, gz));
+}
+
+// AABB of the float4 points [from, to) (empty: +inf lo, -inf hi).
+__device__ __forceinline__ void box_of(const float4* pts, int from, int to,
+                                       float4* lo_out, float4* hi_out) {
+  float4 lo = make_float4(INFINITY, INFINITY, INFINITY, 0.f);
+  float4 hi = make_float4(-INFINITY, -INFINITY, -INFINITY, 0.f);
+  for (int t = from; t < to; ++t) {
+    const float4 v = pts[t];
+    lo.x = fminf(lo.x, v.x);
+    lo.y = fminf(lo.y, v.y);
+    lo.z = fminf(lo.z, v.z);
+    hi.x = fmaxf(hi.x, v.x);
+    hi.y = fmaxf(hi.y, v.y);
+    hi.z = fmaxf(hi.z, v.z);
+  }
+  *lo_out = lo;
+  *hi_out = hi;
+}
+
+// One block a (p-tile, cloud), kBandThreads threads; SUB window points a
+// sub-tile, GROUP sub-tiles a group. ps [B, n, 3]; q [B, m, 3], window
+// point k of q-tile j at row (j * tbq + k) * stride; centers [B, ni] or
+// null; vp [B] (live rows of each cloud, else `live` for every cloud) and
+// vq [B] (with vp: the centres from the two valid counts) or null. Shared
+// memory: the window (3 tbq float4), the sub-tile and group boxes (lo, hi
+// float4 each), each warp's group keys, unsorted and sorted.
+template <int SUB, int GROUP>
 __global__ void __launch_bounds__(kBandThreads)
-    nn_band_kernel(const float* __restrict__ ps, const float* __restrict__ qsub,
-                   const int* __restrict__ centers, int n, int mq, int tb,
-                   int tbq, float* __restrict__ out) {
-  extern __shared__ float win[];  // 3 windows of tbq points, xyz
+    nn_band_kernel(const float* __restrict__ ps, const float* __restrict__ q,
+                   const int* __restrict__ centers, const int* __restrict__ vp,
+                   const int* __restrict__ vq, int n, int m, int stride,
+                   int mq, int tb, int tbq, int live, int ibits,
+                   float* __restrict__ out, int* __restrict__ counts) {
+  extern __shared__ float4 band_smem[];
+  __shared__ int s_visits;
   const int ti = blockIdx.x;
   const int ni = gridDim.x;
   const int b = blockIdx.y;
-  const int njq = mq / tbq;
-  const int center =
-      centers != nullptr
-          ? centers[static_cast<size_t>(b) * ni + ti]
-          : static_cast<int>(static_cast<long long>(ti) * njq / ni);
-  const float* qb = qsub + static_cast<size_t>(b) * mq * 3;
-  for (int w = 0; w < 3; ++w) {
-    const int jt = min(max(center + w - 1, 0), njq - 1);
-    const float* src = qb + static_cast<size_t>(jt) * tbq * 3;
-    for (int t = threadIdx.x; t < 3 * tbq; t += blockDim.x)
-      win[w * 3 * tbq + t] = src[t];
+  const int nw = 3 * tbq;
+  const int k_sub = (nw + SUB - 1) / SUB;
+  const int k_grp = (k_sub + GROUP - 1) / GROUP;
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float4* win = band_smem;
+  float4* sub_box = win + nw;
+  float4* grp_box = sub_box + 2 * k_sub;
+  unsigned* keys =
+      reinterpret_cast<unsigned*>(grp_box + 2 * k_grp) + 2 * warp * k_grp;
+  unsigned* sorted = keys + k_grp;
+  const int row0 = ti * tb;
+  const int rows_live = vp != nullptr ? vp[b] : live;
+  float* ob = out + static_cast<size_t>(b) * n + row0;
+  if (row0 >= rows_live) {  // the whole tile is past the live rows
+    for (int r = threadIdx.x; r < tb; r += blockDim.x) ob[r] = -1.f;
+    if (counts != nullptr && threadIdx.x == 0) counts[b * ni + ti] = 0;
+    return;
   }
+  const int njq = mq / tbq;
+  int center;
+  if (vq != nullptr) {  // _band_centers, in its f32 order
+    const float r = __fmul_rn(__fadd_rn(static_cast<float>(ti), 0.5f),
+                              static_cast<float>(tb));
+    const float ratio = __fdiv_rn(static_cast<float>(vq[b]),
+                                  fmaxf(static_cast<float>(vp[b]), 1.f));
+    center = __float2int_rz(
+        __fdiv_rn(__fmul_rn(r, ratio), static_cast<float>(tb)));
+    center = min(max(center, 0), njq - 1);
+  } else if (centers != nullptr) {
+    center = centers[static_cast<size_t>(b) * ni + ti];
+  } else {
+    center = static_cast<int>(static_cast<long long>(ti) * njq / ni);
+  }
+  const float* qb = q + static_cast<size_t>(b) * m * 3;
+  for (int t = threadIdx.x; t < nw; t += blockDim.x) {
+    const int w = t / tbq;
+    const int jt = min(max(center + w - 1, 0), njq - 1);
+    const size_t row =
+        (static_cast<size_t>(jt) * tbq + (t - w * tbq)) * stride;
+    win[t] = make_float4(qb[3 * row], qb[3 * row + 1], qb[3 * row + 2], 0.f);
+  }
+  if (threadIdx.x == 0) s_visits = 0;
   __syncthreads();
-  for (int r = threadIdx.x; r < tb; r += blockDim.x) {
-    const size_t row = static_cast<size_t>(b) * n +
-                       static_cast<size_t>(ti) * tb + r;
-    const float px = ps[3 * row], py = ps[3 * row + 1], pz = ps[3 * row + 2];
-    float acc = INFINITY;
-    for (int t = 0; t < 3 * tbq; ++t)
-      acc = fminf(acc, ppt::sqdist3(win[3 * t], win[3 * t + 1],
-                                    win[3 * t + 2], px, py, pz));
-    out[row] = acc;
+  for (int s = threadIdx.x; s < k_sub; s += blockDim.x)
+    box_of(win, s * SUB, min(nw, s * SUB + SUB), &sub_box[2 * s],
+           &sub_box[2 * s + 1]);
+  __syncthreads();
+  for (int c = threadIdx.x; c < k_grp; c += blockDim.x)
+    box_of(sub_box, 2 * c * GROUP, 2 * min(k_sub, c * GROUP + GROUP),
+           &grp_box[2 * c], &grp_box[2 * c + 1]);
+  __syncthreads();
+
+  const unsigned low = (1u << ibits) - 1u;
+  int visits = 0;
+  for (int g = warp; g * 32 < tb; g += warps) {
+    const int r = g * 32 + lane;
+    const bool in_tile = r < tb;
+    const bool alive = in_tile && row0 + r < rows_live;
+    if (!__any_sync(kFull, alive)) {
+      if (in_tile) ob[r] = -1.f;
+      continue;
+    }
+    float px = 0.f, py = 0.f, pz = 0.f;
+    if (in_tile) {
+      const float* pr = ps + (static_cast<size_t>(b) * n + row0 + r) * 3;
+      px = pr[0];
+      py = pr[1];
+      pz = pr[2];
+    }
+    // the warp's box over its live rows
+    float lx = alive ? px : INFINITY, ly = alive ? py : INFINITY,
+          lz = alive ? pz : INFINITY;
+    float hx = alive ? px : -INFINITY, hy = alive ? py : -INFINITY,
+          hz = alive ? pz : -INFINITY;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      lx = fminf(lx, __shfl_xor_sync(kFull, lx, off));
+      ly = fminf(ly, __shfl_xor_sync(kFull, ly, off));
+      lz = fminf(lz, __shfl_xor_sync(kFull, lz, off));
+      hx = fmaxf(hx, __shfl_xor_sync(kFull, hx, off));
+      hy = fmaxf(hy, __shfl_xor_sync(kFull, hy, off));
+      hz = fmaxf(hz, __shfl_xor_sync(kFull, hz, off));
+    }
+    // the groups in key order: a stable rank sort of the unique keys
+    for (int c = lane; c < k_grp; c += 32) {
+      const float lbw = gap2(grp_box[2 * c], grp_box[2 * c + 1], hx, hy, hz,
+                             lx, ly, lz);
+      keys[c] = (__float_as_uint(lbw) & ~low) | static_cast<unsigned>(c);
+    }
+    __syncwarp();
+    for (int c = lane; c < k_grp; c += 32) {
+      const unsigned mine = keys[c];
+      int rank = 0;
+      for (int t = 0; t < k_grp; ++t) rank += keys[t] < mine;
+      sorted[rank] = mine;
+    }
+    __syncwarp();
+    float acc = alive ? INFINITY : -INFINITY;
+    float acc2 = acc;  // a second chain of the fold's minimum
+    float amax = INFINITY;  // at least every live lane's acc
+    for (int it = 0; it < k_grp; ++it) {
+      const unsigned key = sorted[it];
+      if (__uint_as_float(key & ~low) >= amax) break;
+      const int c = static_cast<int>(key & low);
+      if (!__any_sync(kFull, gap2(grp_box[2 * c], grp_box[2 * c + 1], px, py,
+                                  pz, px, py, pz) < acc)) {
+        amax = acc;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          amax = fmaxf(amax, __shfl_xor_sync(kFull, amax, off));
+        continue;
+      }
+      for (int s = c * GROUP; s < min(k_sub, c * GROUP + GROUP); ++s) {
+        if (!__any_sync(kFull, gap2(sub_box[2 * s], sub_box[2 * s + 1], px,
+                                    py, pz, px, py, pz) < acc))
+          continue;
+        ++visits;
+        const int t0 = s * SUB;
+        if (t0 + SUB <= nw) {
+#pragma unroll
+          for (int u = 0; u < SUB; u += 2) {
+            const float4 v = win[t0 + u];
+            const float4 v2 = win[t0 + u + 1];
+            acc = fminf(acc, ppt::sqdist3(v.x, v.y, v.z, px, py, pz));
+            acc2 = fminf(acc2, ppt::sqdist3(v2.x, v2.y, v2.z, px, py, pz));
+          }
+        } else {
+          for (int t = t0; t < nw; ++t) {
+            const float4 v = win[t];
+            acc = fminf(acc, ppt::sqdist3(v.x, v.y, v.z, px, py, pz));
+          }
+        }
+        acc = fminf(acc, acc2);
+        acc2 = acc;
+      }
+    }
+    if (in_tile) ob[r] = alive ? acc : -1.f;
+  }
+  if (counts != nullptr) {
+    if (lane == 0) atomicAdd(&s_visits, visits);
+    __syncthreads();
+    if (threadIdx.x == 0) counts[b * ni + ti] = s_visits;
   }
 }
 
@@ -110,7 +309,6 @@ constexpr float kLbScale = 0x1.fffeb0p-1f;
 constexpr unsigned long long kNoNeighbour =
     (static_cast<unsigned long long>(0x7f800000u) << 32) | kSentinel;
 constexpr int kBoxChunk = 256;  // boxes staged in shared memory at a time
-constexpr unsigned kFull = 0xffffffffu;
 
 // Box of each q-tile (tm points) and the packed q: packed[b, r] = (x, y, z,
 // original id as bits); boxes[b, j] = (lo x, y, z, 0), (hi x, y, z, 0). A
@@ -329,20 +527,37 @@ size_t scan_smem(int tn, int nj, int tm) {
 
 }  // namespace
 
-// ps: float [B, ni*tb, 3]; qsub: float [B, mq, 3], mq a multiple of tbq;
-// centers: int [B, ni] or null; out: float [B, ni*tb].
-extern "C" int ppt_nn_band(const float* ps, const float* qsub,
-                           const int* centers, int b, int ni, int mq, int tb,
-                           int tbq, float* out, cudaStream_t stream) {
+// ps: float [B, ni*tb, 3]; q: float [B, m, 3], read at rows k * stride for
+// k < mq (mq a multiple of tbq); centers: int [B, ni] or null; vp: int [B]
+// (each cloud's live rows) or null (`live` rows in every cloud); vq: int
+// [B] or null (with vp: the centres from the valid counts); out: float
+// [B, ni*tb], -1 past the live rows; counts: int [B, ni] (the (warp,
+// sub-tile) folds of each block) or null.
+extern "C" int ppt_nn_band(const float* ps, const float* q,
+                           const int* centers, const int* vp, const int* vq,
+                           int b, int ni, int m, int stride, int mq, int tb,
+                           int tbq, int live, float* out, int* counts,
+                           cudaStream_t stream) {
+  if (tb < 1 || tbq < 1 || stride < 1 || mq < tbq || mq % tbq != 0 ||
+      (vq != nullptr && vp == nullptr))
+    return cudaErrorInvalidValue;
   if (b == 0 || ni == 0) return cudaSuccess;
-  const size_t smem = static_cast<size_t>(9) * tbq * sizeof(float);
+  const auto kernel = nn_band_kernel<kBandSub, kBandGroup>;
+  const int k_sub = (3 * tbq + kBandSub - 1) / kBandSub;
+  const int k_grp = (k_sub + kBandGroup - 1) / kBandGroup;
+  int ibits = 1;
+  while ((1 << ibits) < k_grp) ++ibits;
+  const size_t smem =
+      (static_cast<size_t>(3) * tbq + 2 * k_sub + 2 * k_grp) *
+          sizeof(float4) +
+      static_cast<size_t>(kBandThreads / 32) * 2 * k_grp * sizeof(unsigned);
   const cudaError_t err =
-      set_smem(reinterpret_cast<const void*>(nn_band_kernel), smem);
+      set_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(ni, b);
-  nn_band_kernel<<<grid, kBandThreads, smem, stream>>>(ps, qsub, centers,
-                                                       ni * tb, mq, tb, tbq,
-                                                       out);
+  kernel<<<grid, kBandThreads, smem, stream>>>(ps, q, centers, vp, vq, ni * tb,
+                                               m, stride, mq, tb, tbq, live,
+                                               ibits, out, counts);
   return cudaGetLastError();
 }
 

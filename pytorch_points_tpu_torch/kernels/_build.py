@@ -62,8 +62,10 @@ _SIGNATURES = {
     # d2, i2, stream
     "ppt_nn_worklist": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                         _P, _P, _P],
-    # ps, qsub, centers, b, ni, mq, tb, tbq, out, stream
-    "ppt_nn_band": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    # ps, q, centers, vp, vq, b, ni, m, stride, mq, tb, tbq, live, out,
+    # counts, stream
+    "ppt_nn_band": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                    _P, _P],
     # ps, qs, qid, d_ub, b, ni, nj, tn, tm, scratch, out_d, out_i, cand_out,
     # counts, stream
     "ppt_nn_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,

@@ -23,6 +23,9 @@ equal the dense kernel (K5) on the original clouds, distances and indices
 bitwise. Masked (poisoned) clouds take
 :func:`nndistance_indexed_masked`: valid points sorted over the valid
 AABB with the poison last, and band windows centred by the valid counts.
+The pipeline's band calls (:func:`_band_rows`, :func:`_band_rows_masked`)
+compute only the rows the scan needs and give padding and poisoned rows
+-1 directly, where the reference bounds every row and overwrites those.
 """
 
 from __future__ import annotations
@@ -55,6 +58,10 @@ LB_SCALE = 1.0 - 1e-5
 # Rows a warp of the CUDA scan decides and scans together (a row a lane):
 # the unit of its tile-visit counter.
 SCAN_WARP_ROWS = 32
+# The band kernel's warps (a row a lane), the sub-tiles of its window (the
+# unit of its skip test and of its (warp, sub-tile) fold counter) and the
+# groups of sub-tiles it orders and tests first.
+BAND_WARP_ROWS, BAND_SUB, BAND_GROUP = 32, 16, 4
 
 
 _INVALID_CODE = 0xFFFFFFFF  # the reference's max uint32 key: invalid last
@@ -117,6 +124,22 @@ def _band_windows(centers, ni: int, njq: int, device) -> torch.Tensor:
     return w.clamp_(0, njq - 1)
 
 
+def _band_qsub(qs: torch.Tensor, tbq: int, stride: int) -> torch.Tensor:
+    """q subsampled by ``stride`` and cut to whole ``tbq`` tiles, as the
+    reference does before its band kernel."""
+    qs = qs[:, ::stride, :3]
+    return qs[:, : qs.shape[1] - qs.shape[1] % tbq]
+
+
+def _live_rows(live, b: int, n: int, device) -> torch.Tensor:
+    """[B, n] bool: row r of cloud i is live if r < ``live`` (an int, every
+    cloud; None: all rows) or ``live[i]`` (an int tensor [B])."""
+    rows = torch.arange(n, device=device)
+    if live is None or isinstance(live, int):
+        return (rows < (n if live is None else live)).expand(b, n)
+    return rows[None] < live.to(device)[:, None]
+
+
 def band_min_torch(ps: torch.Tensor, qsub: torch.Tensor, tb: int, tbq: int,
                    centers: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version: [B,n,3] (n = ni*tb), [B,mq,3] (mq = njq*tbq) ->
@@ -134,28 +157,132 @@ def band_min_torch(ps: torch.Tensor, qsub: torch.Tensor, tb: int, tbq: int,
     return out
 
 
-def _launch_band(ps: torch.Tensor, qsub: torch.Tensor, tb: int, tbq: int,
-                 centers: torch.Tensor | None) -> torch.Tensor:
+def _gap2(lo, hi, a_lo, a_hi):
+    """Squared gap between boxes [.., 3], per axis max(lo - a_hi, a_lo - hi,
+    0), summed x, y, z, each operation rounded alone (the kernel's gap2)."""
+    gap = torch.maximum(lo - a_hi, a_lo - hi).clamp_min(0.0)
+    gap = gap * gap
+    return (gap[..., 0] + gap[..., 1]) + gap[..., 2]
+
+
+def band_visits_torch(ps: torch.Tensor, qsub: torch.Tensor, tb: int,
+                      tbq: int, centers: torch.Tensor | None = None,
+                      live=None):
+    """Plain emulation of the band kernel's scan (``csrc/nn_sorted.cu``).
+    The window's points fall in sub-tiles of :data:`BAND_SUB` and those in
+    groups of :data:`BAND_GROUP`. Each warp of :data:`BAND_WARP_ROWS` rows
+    takes the groups in key order (the squared gap from the warp's box of
+    live rows to the group's box, its low bits replaced by the group index;
+    ascending), the sub-tiles of a group in index order, and folds a
+    sub-tile only when some live lane's own gap to it is below the lane's
+    running min. Arguments as :func:`band_min_torch`, ``live`` as
+    :func:`_live_rows`. Returns (out [B, n], -1 past the live rows; visits
+    [B, ni] int32, the (warp, sub-tile) folds of each tile). The skips are
+    exact: out equals band_min_torch on the live rows."""
     b, n, _ = ps.shape
-    mq = qsub.shape[1]
+    ni, njq = n // tb, qsub.shape[1] // tbq
+    nw, w, sub = 3 * tbq, BAND_WARP_ROWS, BAND_SUB
+    k = -(-nw // sub)
+    kg = -(-k // BAND_GROUP)
+    low = (1 << max(1, (kg - 1).bit_length())) - 1
+    g = -(-tb // w)
+    dev = ps.device
+    inf = float("inf")
+    win = _band_windows(centers, ni, njq, dev).expand(b, ni, 3)
+    qw = torch.stack([qsub[i].reshape(njq, tbq, 3)[win[i]].reshape(ni, nw, 3)
+                      for i in range(b)])
+    pt_ok = (torch.arange(k * sub, device=dev) < nw).reshape(k, sub)
+    qt = torch.nn.functional.pad(qw, (0, 0, 0, k * sub - nw)).reshape(
+        b, ni, k, sub, 3)
+    lo = torch.where(pt_ok[..., None], qt, inf).amin(dim=3)  # [B, ni, K, 3]
+    hi = torch.where(pt_ok[..., None], qt, -inf).amax(dim=3)
+    pad = (0, 0, 0, kg * BAND_GROUP - k)
+    glo = torch.nn.functional.pad(lo, pad, value=inf).reshape(
+        b, ni, kg, BAND_GROUP, 3).amin(dim=3)
+    ghi = torch.nn.functional.pad(hi, pad, value=-inf).reshape(
+        b, ni, kg, BAND_GROUP, 3).amax(dim=3)
+    pr = torch.nn.functional.pad(ps.reshape(b, ni, tb, 3),
+                                 (0, 0, 0, g * w - tb)).reshape(b, ni, g, w, 3)
+    alive = torch.nn.functional.pad(_live_rows(live, b, n, dev).reshape(
+        b, ni, tb), (0, g * w - tb)).reshape(b, ni, g, w)
+    wlo = torch.where(alive[..., None], pr, inf).amin(dim=3)  # [B, ni, g, 3]
+    whi = torch.where(alive[..., None], pr, -inf).amax(dim=3)
+    lbw = _gap2(glo[:, :, None], ghi[:, :, None], wlo[:, :, :, None],
+                whi[:, :, :, None])  # [B, ni, g, kg]
+    key = ((lbw.view(torch.int32).long() & ~low)
+           | torch.arange(kg, device=dev))
+    sub_of = (key.argsort(dim=3)[..., None] * BAND_GROUP
+              + torch.arange(BAND_GROUP, device=dev)).flatten(3)
+    # the ragged last group's missing sub-tiles to the end, then cut
+    past = (sub_of >= k).to(torch.uint8).argsort(dim=3, stable=True)
+    order = sub_of.gather(3, past)[..., :k]  # [B, ni, g, K]
+    lb = _gap2(lo[:, :, None, None], hi[:, :, None, None], pr[..., None, :],
+               pr[..., None, :])  # [B, ni, g, w, K]
+    acc = torch.where(alive, inf, -inf)
+    visits = torch.zeros((b, ni, g), dtype=torch.int32, device=dev)
+    for t in range(k):
+        s = order[..., t]  # [B, ni, g]
+        lb_t = lb.gather(4, s[..., None, None].expand(b, ni, g, w, 1))[..., 0]
+        visit = (lb_t < acc).any(dim=3)
+        pts = qt.gather(2, s[..., None, None].expand(b, ni, g, sub, 3))
+        dx, dy, dz = (pts[:, :, :, None, :, c] - pr[..., None, c]
+                      for c in range(3))
+        d = torch.where(pt_ok[s][:, :, :, None], (dx * dx + dy * dy) + dz * dz,
+                        inf).amin(dim=4)
+        acc = torch.where(visit[..., None], torch.minimum(acc, d), acc)
+        visits += visit
+    out = torch.where(alive, acc, -1.0).reshape(b, ni, g * w)[..., :tb]
+    return out.reshape(b, n), visits.sum(dim=2, dtype=torch.int32)
+
+
+def _band_rows_torch(ps, qsub, tb, tbq, live, centers=None, counts=None):
+    """Plain version of the band kernel on live rows: :func:`band_min_torch`,
+    -1 past each cloud's live rows (``live`` as :func:`_live_rows`), and
+    into ``counts`` ([B, ni] int32) the kernel's (warp, sub-tile) folds,
+    from :func:`band_visits_torch`."""
+    b, n, _ = ps.shape
+    out = torch.where(_live_rows(live, b, n, ps.device),
+                      band_min_torch(ps, qsub, tb, tbq, centers), -1.0)
+    if counts is not None:
+        counts.copy_(band_visits_torch(ps, qsub, tb, tbq, centers, live)[1])
+    return out
+
+
+def _launch_band(ps, qs, tb, tbq, stride, centers=None, live=None, vq=None,
+                 counts=None) -> torch.Tensor:
+    b, n, _ = ps.shape
+    m = qs.shape[1]
     ni = n // tb
     _build.require(ps, "nn_band ps", torch.float32, (b, n, 3))
-    _build.require(qsub, "nn_band qsub", torch.float32, (b, mq, 3))
+    _build.require(qs, "nn_band qs", torch.float32, (b, m, 3))
     if centers is not None:
         _build.require(centers, "nn_band centers", torch.int32, (b, ni))
+    vp = live if isinstance(live, torch.Tensor) else None
+    if vp is not None:
+        _build.require(vp, "nn_band live", torch.int32, (b,))
+    if vq is not None:
+        _build.require(vq, "nn_band vq", torch.int32, (b,))
+    if counts is not None:
+        _build.require(counts, "nn_band counts", torch.int32, (b, ni))
     out = torch.empty((b, n), dtype=torch.float32, device=ps.device)
     err = _ppt_nn_band(
-        ps.data_ptr(), qsub.data_ptr(), _build.ptr(centers), b, ni, mq, tb,
-        tbq, out.data_ptr(), _build.stream(ps),
+        ps.data_ptr(), qs.data_ptr(), _build.ptr(centers), _build.ptr(vp),
+        _build.ptr(vq), b, ni, m, stride, -(-m // stride) // tbq * tbq, tb,
+        tbq, n if live is None or vp is not None else live, out.data_ptr(),
+        _build.ptr(counts), _build.stream(ps),
     )
     _build.check(err, "ppt_nn_band")
     return out
 
 
-def band_min_cuda(ps: torch.Tensor, qsub: torch.Tensor, tb: int,
-                  tbq: int) -> torch.Tensor:
-    """Launch the band kernel: same contract as :func:`band_min_torch`."""
-    out = _launch_band(ps, qsub, tb, tbq, None)
+def band_min_cuda(ps: torch.Tensor, qs: torch.Tensor, tb: int, tbq: int,
+                  stride: int = 1, live=None,
+                  counts: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the band kernel (K6's band) on q read at ``stride`` (no
+    subsampled copy): ``band_min_torch(ps, _band_qsub(qs, tbq, stride), tb,
+    tbq)`` on the live rows (``live`` as :func:`_live_rows`), -1 past them;
+    ``counts`` as :func:`_band_rows_torch`'s."""
+    out = _launch_band(ps, qs, tb, tbq, stride, None, live, None, counts)
     band_min_cuda.launches += 1
     return out
 
@@ -164,10 +291,15 @@ band_min_cuda.launches = 0
 
 
 def band_min_dynamic_cuda(ps: torch.Tensor, qs: torch.Tensor,
-                          centers: torch.Tensor, tb: int) -> torch.Tensor:
-    """Launch the band kernel with a centre table (K7): same contract as
-    ``band_min_torch(ps, qs, tb, tb, centers)``; its own launch count."""
-    out = _launch_band(ps, qs, tb, tb, centers)
+                          centers: torch.Tensor | None, tb: int, live=None,
+                          vq: torch.Tensor | None = None,
+                          counts: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the band kernel with window centres (K7): ``centers`` [B, nI],
+    or None with ``live`` and ``vq`` (int32 [B]), for the centres
+    ``_band_centers(live, vq, ...)``, which the kernel computes. Same
+    contract as ``band_min_torch(ps, qs, tb, tb, centers)`` on the live
+    rows, -1 past them; its own launch count."""
+    out = _launch_band(ps, qs, tb, tb, 1, centers, live, vq, counts)
     band_min_dynamic_cuda.launches += 1
     return out
 
@@ -186,15 +318,39 @@ def band_min(ps: torch.Tensor, qs: torch.Tensor, tb: int = TB,
     with c = i * njq // ni (masked clouds: :func:`band_min_dynamic`).
     """
     tbq = tb if tbq is None else tbq
-    qs = qs[:, ::stride, :3]
-    qs = qs[:, : qs.shape[1] - qs.shape[1] % tbq]
     ps = ps[..., :3]
-    if ps.shape[1] % tb or qs.shape[1] == 0:
+    if ps.shape[1] % tb or -(-qs.shape[1] // stride) < tbq:
         raise ValueError(f"band_min: n={ps.shape[1]} must be a multiple of "
                          f"tb={tb} and q must hold a whole tbq={tbq} tile")
     if dispatch.resolve(impl, ps, "nn_band") == "cuda":
-        return band_min_cuda(ps.contiguous(), qs.contiguous(), tb, tbq)
-    return band_min_torch(ps, qs, tb, tbq)
+        return band_min_cuda(ps.contiguous(), qs[..., :3].contiguous(), tb,
+                             tbq, stride)
+    return band_min_torch(ps, _band_qsub(qs, tbq, stride), tb, tbq)
+
+
+def _band_rows(ps, qs, live, tb=TB, tbq=TBQ, stride=STRIDE, counts=None,
+               impl="auto"):
+    """K6's band (:func:`band_min`) on sorted, padded [B, n, 3] / [B, m, 3]
+    clouds, for the first ``live`` rows of each cloud (an int, or int32
+    [B]) only: -1 past them, as the scan takes padding, and those rows are
+    not computed. ``counts`` ([B, n / tb] int32) receives the kernel's
+    (warp, sub-tile) folds, the plain version's emulated count."""
+    if dispatch.resolve(impl, ps, "nn_band") == "cuda":
+        return band_min_cuda(ps, qs, tb, tbq, stride, live, counts)
+    return _band_rows_torch(ps, _band_qsub(qs, tbq, stride), tb, tbq, live,
+                            None, counts)
+
+
+def _band_rows_masked(ps, qs, vp, vq, tb=TB, counts=None, impl="auto"):
+    """K7 (:func:`band_min_dynamic`) on masked-sorted, padded clouds whose
+    first ``vp`` (int32 [B]) rows are valid, the other cloud's first ``vq``:
+    windows centred by ``_band_centers(vp, vq, ...)`` (on the card the
+    kernel computes them), -1 past the valid rows, which are not computed.
+    ``counts`` as in :func:`_band_rows`."""
+    if dispatch.resolve(impl, ps, "nn_band_dynamic") == "cuda":
+        return band_min_dynamic_cuda(ps, qs, None, tb, vp, vq, counts)
+    centers = _band_centers(vp, vq, ps.shape[1] // tb, qs.shape[1] // tb, tb)
+    return _band_rows_torch(ps, qs, tb, tb, vp, centers, counts)
 
 
 def _band_centers(vp: torch.Tensor, vq: torch.Tensor, ni: int, njq: int,
@@ -392,25 +548,29 @@ def nn_scan(ps: torch.Tensor, qs: torch.Tensor, qid: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _band_bounds(ps, qs, tn, tm, tb, impl):
+def _band_bounds(ps, qs, tn, tm, tb, impl, live=False):
     """Sorted clouds padded with poison rows to a multiple of max(tn, tm,
-    tb), and each direction's band bound (:func:`band_min`):
-    (pp, qp, d_ub1, d_ub2)."""
+    tb), and each direction's band bound (:func:`band_min`'s, stride-4
+    windows of TBQ points): (pp, qp, d_ub1, d_ub2). With ``live`` the
+    padding rows get -1, uncomputed (the scan's input: they need no NN);
+    without, every row its bound (the reference's telemetry)."""
+    n, m = ps.shape[1], qs.shape[1]
     align = max(tn, tm, tb)
-    pp = _pad_poison(ps, _round_up(ps.shape[1], align), 1.0)
-    qp = _pad_poison(qs, _round_up(qs.shape[1], align), -1.0)
-    d_ub1 = band_min(pp, qp, tb=tb, tbq=TBQ, stride=STRIDE, impl=impl)
-    d_ub2 = band_min(qp, pp, tb=tb, tbq=TBQ, stride=STRIDE, impl=impl)
+    pp = _pad_poison(ps, _round_up(n, align), 1.0)
+    qp = _pad_poison(qs, _round_up(m, align), -1.0)
+    d_ub1 = _band_rows(pp, qp, n if live else pp.shape[1], tb, impl=impl)
+    d_ub2 = _band_rows(qp, pp, m if live else qp.shape[1], tb, impl=impl)
     return pp, qp, d_ub1, d_ub2
 
 
 def _band_bounds_masked(p, q, pv, qv, tn, tm, tb, impl):
     """:func:`_band_bounds` for poisoned clouds with validity pv [B,N], qv
     [B,M] bool: valid points sorted over the valid AABB with the poison
-    last, band windows centred by the valid counts
-    (:func:`band_min_dynamic`), bound -1 on poisoned and padding rows.
-    (pp, qp, perm_p, perm_q, pvs, qvs, d_ub1, d_ub2), pvs and qvs the sorted
-    validity padded with False."""
+    last (so the valid rows are a prefix), band windows centred by the
+    valid counts (K7, :func:`_band_rows_masked`), bound -1 on poisoned and
+    padding rows, which are not computed. (pp, qp, perm_p, perm_q, pvs,
+    qvs, d_ub1, d_ub2), pvs and qvs the sorted validity padded with
+    False."""
     n, m = p.shape[1], q.shape[1]
     ps, perm_p, pvs = sort_by_morton_masked(p, pv)
     qs, perm_q, qvs = sort_by_morton_masked(q, qv)
@@ -420,22 +580,27 @@ def _band_bounds_masked(p, q, pv, qv, tn, tm, tb, impl):
     qp = _pad_poison(qs, m_pad, -1.0)
     pvs = torch.nn.functional.pad(pvs, (0, n_pad - n))
     qvs = torch.nn.functional.pad(qvs, (0, m_pad - m))
-    vp, vq = pv.sum(dim=1), qv.sum(dim=1)
-    c1 = _band_centers(vp, vq, n_pad // tb, m_pad // tb, tb)
-    c2 = _band_centers(vq, vp, m_pad // tb, n_pad // tb, tb)
-    d_ub1 = torch.where(pvs, band_min_dynamic(pp, qp, c1, tb, impl), -1.0)
-    d_ub2 = torch.where(qvs, band_min_dynamic(qp, pp, c2, tb, impl), -1.0)
+    vp = pv.sum(dim=1, dtype=torch.int32)
+    vq = qv.sum(dim=1, dtype=torch.int32)
+    d_ub1 = _band_rows_masked(pp, qp, vp, vq, tb, impl=impl)
+    d_ub2 = _band_rows_masked(qp, pp, vq, vp, tb, impl=impl)
     return pp, qp, perm_p, perm_q, pvs, qvs, d_ub1, d_ub2
+
+
+def _masked_bounds(p, q, impl):
+    """The band stage of :func:`nndistance_indexed_masked` on poisoned f32
+    clouds: validity |x0| < BIG_COORD, then :func:`_band_bounds_masked` at
+    the reference's tiles. The same tuple."""
+    pv = p[..., 0].abs() < BIG_COORD
+    qv = q[..., 0].abs() < BIG_COORD
+    return _band_bounds_masked(p, q, pv, qv, TN, TM, TB, impl)
 
 
 def _nn_sorted_space(ps, pid, qs, qid, impl):
     """Both directions on sorted clouds carrying ids [B,N] int32: rows in
     the given order, each the (distance, lowest id) of its NN."""
     n, m = ps.shape[1], qs.shape[1]
-    pp, qp, d_ub1, d_ub2 = _band_bounds(ps, qs, TN, TM, TB, impl)
-    # Padding rows need no NN: no candidate at all (their bound is -1).
-    d_ub1[:, n:] = -1.0
-    d_ub2[:, m:] = -1.0
+    pp, qp, d_ub1, d_ub2 = _band_bounds(ps, qs, TN, TM, TB, impl, live=True)
     d1, i1 = nn_scan(pp, qp, _pad_ids(qid, qp.shape[1]), d_ub1, impl=impl)
     d2, i2 = nn_scan(qp, pp, _pad_ids(pid, pp.shape[1]), d_ub2, impl=impl)
     return d1[:, :n], i1[:, :n], d2[:, :m], i2[:, :m]
@@ -518,10 +683,8 @@ def nndistance_indexed_masked(p: torch.Tensor, q: torch.Tensor, tn: int = TN,
     p = p.to(torch.float32)
     q = q.to(torch.float32)
     n, m = p.shape[1], q.shape[1]
-    pv = p[..., 0].abs() < BIG_COORD
-    qv = q[..., 0].abs() < BIG_COORD
-    pp, qp, perm_p, perm_q, pvs, qvs, d_ub1, d_ub2 = _band_bounds_masked(
-        p, q, pv, qv, TN, TM, TB, impl)
+    pp, qp, perm_p, perm_q, pvs, qvs, d_ub1, d_ub2 = _masked_bounds(p, q,
+                                                                    impl)
     d1s, i1s = nn_scan(pp, qp, _pad_ids(perm_q, qp.shape[1]), d_ub1,
                        impl=impl)
     d2s, i2s = nn_scan(qp, pp, _pad_ids(perm_p, pp.shape[1]), d_ub2,

@@ -746,6 +746,117 @@ def test_nn_band_dynamic_cuda_matches_plain_at_ragged_masks(dev):
         assert torch.equal(g[v], r[v]) and (g[~v] == 0).all()
 
 
+def _band_clouds(dev, kind, n, m, b=2):
+    """Sorted clouds padded to whole 512-point tiles, on the card."""
+    p, q = _on(dev, *nn_inputs(kind, n, m, b))
+    ps = nn_sorted._pad_poison(nn_sorted.sort_by_morton(p)[0],
+                               -(-n // 512) * 512, 1.0)
+    qs = nn_sorted._pad_poison(nn_sorted.sort_by_morton(q)[0],
+                               -(-m // 512) * 512, -1.0)
+    return ps, qs
+
+
+def _band_rows_both(fn, b, ni, dev):
+    """fn(impl, counts) on the card and in its plain version: (out, the
+    (warp, sub-tile) fold counts) of each."""
+    outs = []
+    for impl in ("cuda", "torch"):
+        counts = torch.full((b, ni), -1, dtype=torch.int32, device=dev)
+        outs.append((fn(impl, counts), counts))
+    return outs
+
+
+@pytest.mark.parametrize("tbq,stride", [(64, 1), (64, 4), (128, 1),
+                                        (128, 4), (512, 1), (512, 4),
+                                        (72, 1)])
+@pytest.mark.parametrize("kind", ["random", "grid"])
+def test_nn_band_rows_cuda_matches_plain(dev, kind, tbq, stride):
+    # K6's band through the pipeline's entry: every row, ragged live counts
+    # (none a multiple of a warp or a sub-tile), 0 and all; tbq = 72 gives
+    # a window of 13.5 sub-tiles. Bits and the fold counter equal the plain
+    # version's, and the public band_min equals the all-rows form.
+    ps, qs = _band_clouds(dev, kind, 2000, 3000)
+    b, n = ps.shape[:2]
+    lives = (None, 2000, torch.tensor([1501, 0], dtype=torch.int32,
+                                      device=dev), n)
+    with torch.inference_mode():
+        for live in lives:
+            (got, gc), (ref, rc) = _band_rows_both(
+                lambda impl, counts, live=live: nn_sorted._band_rows(
+                    ps, qs, live, 512, tbq, stride, counts, impl), b, n // 512,
+                dev)
+            _assert_same([got, gc], [ref, rc])
+            assert (gc >= 0).all()
+        whole = nn_sorted.band_min(ps, qs, tbq=tbq, stride=stride,
+                                   impl="cuda")
+        _assert_same([whole], [nn_sorted._band_rows(ps, qs, None, 512, tbq,
+                                                    stride, impl="cuda")])
+
+
+@pytest.mark.parametrize("kind", ["random", "grid"])
+def test_nn_band_masked_cuda_matches_plain(dev, kind):
+    # K7 through the pipeline: ragged 50-100% valid counts, a wholly
+    # poisoned p cloud (count 0) and q cloud (its window all poison); the
+    # centres the kernel computes from the counts equal _band_centers (the
+    # bounds, -1 past each count, and the fold counter are bitwise the plain
+    # version's), and the masked NN still equals K5
+    rng = np.random.default_rng(23)
+    b, n, m = 4, 5000, 4000
+    p, q = _on(dev, cloud(rng, b, n, kind), cloud(rng, b, m, kind))
+    vp = np.array([[5000], [3701], [0], [2600]])
+    vq = np.array([[2200], [4000], [3999], [0]])
+    pm, qm = _on(dev, np.arange(n)[None] < vp, np.arange(m)[None] < vq)
+    pp, qp = poison_points(p, pm, 1.0), poison_points(q, qm, -1.0)
+    with torch.inference_mode():
+        got = nn_sorted._band_bounds_masked(pp, qp, pm, qm, 512, 64, 512,
+                                            "cuda")
+        ref = nn_sorted._band_bounds_masked(pp, qp, pm, qm, 512, 64, 512,
+                                            "torch")
+        _assert_same(got, ref)
+        sp, sq = got[:2]
+        cp, cq = (x.sum(1, dtype=torch.int32) for x in (pm, qm))
+        for a, o, ca, co in ((sp, sq, cp, cq), (sq, sp, cq, cp)):
+            (out, gc), (plain, rc) = _band_rows_both(
+                lambda impl, counts, a=a, o=o, ca=ca, co=co:
+                nn_sorted._band_rows_masked(a, o, ca, co, 512, counts, impl),
+                b, a.shape[1] // 512, dev)
+            _assert_same([out, gc], [plain, rc])
+            assert (out[2 if a is sp else 3] == -1).all()
+            assert (gc[2 if a is sp else 3] == 0).all()
+        nn = nn_sorted.nndistance_indexed_masked(pp, qp, impl="cuda")
+        dense = distance_tiles.nn_both_directions(pp, qp, impl="cuda")
+    for g, r, v in zip(nn, dense, (pm, pm, qm, qm)):
+        assert torch.equal(g[v], r[v]) and (g[~v] == 0).all()
+
+
+def test_nn_band_cuda_headline_matches_plain(dev):
+    # both instances at the headline's B=32 N=M=16384: K6's band on every
+    # row (tbq 128, stride 4), K7 on 75% and ragged valid prefixes
+    rng = np.random.default_rng(29)
+    b, n = 32, 16384
+    p, q = _on(dev, cloud(rng, b, n), cloud(rng, b, n))
+    with torch.inference_mode():
+        ps, qs = nn_sorted.sort_by_morton(p)[0], nn_sorted.sort_by_morton(q)[0]
+        (got, gc), (ref, rc) = _band_rows_both(
+            lambda impl, counts: nn_sorted._band_rows(
+                ps, qs, n, counts=counts, impl=impl), b, n // 512, dev)
+        _assert_same([got, gc], [ref, rc])
+        for valid in ([3 * n // 4] * b, rng.integers(n // 2, n + 1, b)):
+            vp = torch.tensor(valid, dtype=torch.int32, device=dev)
+            vq = vp.flip(0).contiguous()
+            pm = torch.arange(n, device=dev)[None] < vp[:, None]
+            qm = torch.arange(n, device=dev)[None] < vq[:, None]
+            pp = nn_sorted.sort_by_morton_masked(
+                poison_points(p, pm, 1.0), pm)[0]
+            qp = nn_sorted.sort_by_morton_masked(
+                poison_points(q, qm, -1.0), qm)[0]
+            (got, gc), (ref, rc) = _band_rows_both(
+                lambda impl, counts: nn_sorted._band_rows_masked(
+                    pp, qp, vp, vq, counts=counts, impl=impl), b, n // 512,
+                dev)
+            _assert_same([got, gc], [ref, rc])
+
+
 def _ring_cases(kind, b, nq, ns):
     rng = np.random.default_rng(18)
     q, s = cloud(rng, b, nq, kind), cloud(rng, b, ns, kind)
