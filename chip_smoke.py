@@ -69,8 +69,12 @@ Phases, in order; any failure raises and exits non-zero:
    k = 65 and 128 (heaps, one pass), K9 and K10 at k = 100 (the wide
    list), the any-C streaming scan at config 7's feature widths C = 24 and
    96, K5 at B=4 N=5000 M=3001, and K11 with 9 phases (two chained
-   launches). Kernel and plain times from CUDA events (a plain
-   version that takes over a second: one call on the host clock); beside
+   launches); config 7's own shapes: K8 on its xyz graph (B=8 Nq=Ns=2048
+   k=17), K3 and its K4 backward at its DenseEdgeConv groups (B=8
+   K=32768, C = 24 and 96, at the xyz graph's indices), K9 at its
+   repulsion (B=8 N=8192 k=5). Kernel and plain times from CUDA events
+   (a plain version that takes over a second: one call on the host
+   clock); beside
    them each case's bound (the least time the card could take: bytes over
    3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger) and,
    for the gather and the scatter, the time of one PyTorch call computing
@@ -133,11 +137,26 @@ Phases, in order; any failure raises and exits non-zero:
    answers) and (b) independent clouds (too many candidate pairs: the
    dense kernel K5 answers), each equal to K5, median of 5 calls beside K5.
 
-Phases 3-12 are the main paths. Each sets every kernel's launch count to 0
-just before it runs and reads them just after, and fails if a kernel of its
-path was never launched.
+13. config 7: the full-width PointUpsampler(ratio=4) at B=8, 2048 -> 8192
+   points (random weights from a seeded torch.Generator): served within
+   1e-5 of the plain versions; trained on chamfer_distance (the sorted
+   scan, K6) with Adam at 1e-3, the first step's loss and grads held to
+   the plain versions', median of 10 steps; one step on ChamferLoss + 0.1
+   RepulsionLoss (the ring kNN, K9) with the same gate; UniformLoss on its
+   output equal to the plain versions'; DenseEdgeConv(24, 24) on a
+   feature-space graph of the lifted input (K8 over 24 channels) within
+   1e-5 of plain;
+14. config 8: the full-width PointNet2SemSeg(13) trained at B=16 N=2048 on
+   softmax cross-entropy averaged over every point, gated and timed as
+   phase 13; its forward on 75%-valid masks (masked logits 0, within 1e-5
+   of plain); PointNet2Classifier(40) served at B=16 N=2048 within 1e-5
+   of plain.
 
-13. profile: one call of each main path, traced with torch.profiler after
+Phases 3-14 are the main paths. Each sets every kernel's launch count to 0
+just before each of its runs and reads them just after, and fails if a
+kernel of that run's path was never launched.
+
+15. profile: one call of each main path, traced with torch.profiler after
    its untraced timing: wall ms, device busy ms and idle share per call,
    the largest device items and the port's kernels among the rest; for
    config 6 and 6m also the glue around the ring kernels (its device items
@@ -207,7 +226,11 @@ KNN_WIDE_K = (65, 128)  # K8's heaps past 64 keys
 RING_WIDE_K = 100  # K9/K10 past the register lists
 RING_CONFIG6_K = (1, 64, 65)  # K9 at config 6: the lists' other forms
 CONFIG7_C = (24, 96)  # config 7's feature-space graphs (edge1, edge2)
-CONFIG7 = dict(b=8, n=2048, k=17)
+# config 7 (bench.py:338-361): its kNN graphs take k = 16 and self
+CONFIG7 = dict(b=8, n=2048, k=17, ratio=4)
+REPULSION_K = 5  # RepulsionLoss's kNN: k = 4 and self
+SEMSEG = dict(b=16, n=2048, classes=13)  # config 8 (bench.py:363-384)
+CLASSIFIER_CLASSES = 40
 AUCTION_PHASES = 9  # past the 8 phases one K11 launch holds
 SPLIT_KERNELS = ("gather", "scatter", "knn", "nn_dense")  # device-only
 SMS, LANES_PER_SM = 132, 4 * 32  # H100 SXM: 4 schedulers of 32 lanes an SM
@@ -259,6 +282,12 @@ HEAD_KERNELS = ("fps", "ball_query", "gather", "scatter", "nn_band",
 HEAD_MASKED_KERNELS = ("fps", "ball_query", "gather", "scatter",
                        "nn_band_dynamic", "nn_resident")
 FUSED_KERNELS = ("ball_query_coords", "scatter")
+CONFIG7_SERVE_KERNELS = ("knn", "gather")
+CONFIG7_TRAIN_KERNELS = ("knn", "gather", "scatter", "nn_band",
+                         "nn_resident")
+UNIFORM_KERNELS = ("fps", "gather")
+SEMSEG_KERNELS = (*SERVE_KERNELS, "scatter")
+CLASSIFIER_KERNELS = ("fps", "ball_query", "gather")
 
 
 def fail(msg: str) -> None:
@@ -701,6 +730,11 @@ def kernel_cases(torch, rng, dev):
             "knn", f"config 7 feature graph B{cb} N={cn} C={c} k={ck}",
             lambda impl, f=f: topk_scan.knn(f, f, ck, impl=impl),
             [f], (3 * c - 1) * cb * cn * cn, issue=3 * c * cb * cn * cn))
+    ux = t(cloud(crng, cb, cn))  # config 7's graphs on its input's xyz
+    cases.append(Case(
+        "knn", f"config 7 xyz graph B{cb} Nq=Ns={cn} k={ck}",
+        lambda impl: topk_scan.knn(ux, ux, ck, impl=impl), [ux],
+        DIST_FLOPS * cb * cn * cn, issue=DIST_FLOPS * cb * cn * cn))
     return cases
 
 
@@ -868,7 +902,8 @@ def sorted_nn_cases(torch, rng, dev):
 def training_kernel_cases(torch, rng, dev):
     """Cases of the training paths' kernels: K5 at config 5's shape; K6,
     and K1, K2 and K3 at the headline's; K4 at the backward scatters of
-    both and of the masked headline's chamfer."""
+    both and of the masked headline's chamfer; K3 and K4 at config 7's
+    DenseEdgeConv groups."""
     from pytorch_points_tpu_torch.core.masking import poison_points
     from pytorch_points_tpu_torch.kernels import (
         ballquery,
@@ -876,6 +911,7 @@ def training_kernel_cases(torch, rng, dev):
         fps,
         gather,
         nn_sorted,
+        topk_scan,
     )
 
     def t(a):
@@ -972,6 +1008,23 @@ def training_kernel_cases(torch, rng, dev):
         cases.append(scatter_case(
             torch, f"masked headline chamfer backward, {label}, B{hb} "
             f"K={hn} n={hn} C=3", i, u, hn))
+    # config 7's DenseEdgeConv groups (C = 24 into edge1, 96 into edge2) and
+    # their backward scatters, at its xyz graph's indices without self
+    cb, cn, ck = CONFIG7["b"], CONFIG7["n"], CONFIG7["k"]
+    crng = np.random.default_rng(SEED + 22)
+    ux = t(cloud(crng, cb, cn))
+    uidx = topk_scan.knn(ux, ux, ck, impl="torch")[1][..., 1:].reshape(cb, -1)
+    uk = uidx.shape[1]
+    for c in CONFIG7_C:
+        f = t(crng.standard_normal((cb, cn, c)).astype(np.float32))
+        u = t(crng.standard_normal((cb, uk, c)).astype(np.float32))
+        cases += [
+            Case("gather", f"config 7 group B{cb} K={uk} C={c}",
+                 lambda impl, f=f: gather.gather_rows(f, uidx, impl=impl),
+                 [f, uidx], library=gather_call(torch, f, uidx)),
+            scatter_case(torch, f"config 7 group backward B{cb} K={uk} "
+                         f"n={cn} C={c}", uidx, u, cn),
+        ]
     return cases
 
 
@@ -1070,6 +1123,14 @@ def ring_kernel_cases(torch, dev):
     cases += [Case("knn_ring", f"config 6 B{b} N={n} k={kk}",
                    ring(qsp, sup4, kk), [qsp, sup4], stats_of(qsp, sup4, kk),
                    work=work) for kk in RING_CONFIG6_K]
+    # config 7's RepulsionLoss on its 8192-point prediction
+    ub, un = CONFIG7["b"], CONFIG7["n"] * CONFIG7["ratio"]
+    xu = torch.from_numpy(cloud(np.random.default_rng(SEED + 23), ub,
+                                un)).to(dev)
+    uq, us, _, _ = ts._ring_inputs(xu, xu, False)
+    cases.append(Case("knn_ring", f"config 7 repulsion B{ub} N={un} "
+                      f"k={REPULSION_K}", ring(uq, us, REPULSION_K),
+                      [uq, us], stats_of(uq, us, REPULSION_K), work=work))
     # k = 100, a heap of 104: at the reference's check shape, with forced
     # duplicate ties and ragged valid counts
     rb, rn, rk = RING_CHECK["b"], RING_CHECK["n"], RING_WIDE_K
@@ -1646,6 +1707,55 @@ def grad_gap(got, ref):
     return worst
 
 
+def first_step_gate(torch, model, loss_of, what):
+    """The first step's loss and parameter grads, kernels against plain
+    versions (uncounted): ``loss_of(impl)`` computes the loss on one route.
+    The loss must agree within 1e-6 relative and every grad within
+    TRAIN_GRAD_TOL of its tensor's largest plain grad."""
+    first = {}
+    for impl in ("cuda", "torch"):
+        model.zero_grad(set_to_none=True)
+        loss = loss_of(impl)
+        loss.backward()
+        first[impl] = (loss.item(), [p.grad.detach().clone()
+                                     for p in model.parameters()])
+    model.zero_grad(set_to_none=True)
+    gap = grad_gap(first["cuda"][1], first["torch"][1])
+    print(f"first step: loss kernels {first['cuda'][0]!r} plain "
+          f"{first['torch'][0]!r}; parameter grads max |kernels - plain| / "
+          f"max |plain| = {gap!r} (bar {TRAIN_GRAD_TOL})")
+    if not np.isfinite(first["cuda"][0]) or gap > TRAIN_GRAD_TOL or abs(
+            first["cuda"][0] - first["torch"][0]) > 1e-6 * abs(
+                first["torch"][0]):
+        fail(f"{what}: first-step loss or grads differ from the plain "
+             "versions")
+
+
+def train_run(torch, dev, wrappers, required, label, step, batches):
+    """One main path: ``step`` over ``batches``, timed a step to its loss's
+    ``.item()``; fails on a non-finite loss. Returns (launches, median ms
+    a step)."""
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def train():
+        for batch in batches:
+            t0 = time.perf_counter()
+            losses.append(step(batch).item())  # .item() waits for the card
+            times.append((time.perf_counter() - t0) * 1e3)
+
+    launches = drive(wrappers, required, f"train, {label}", train)
+    if not np.isfinite(losses).all():
+        fail(f"train ({label}): non-finite loss {losses}")
+    median = statistics.median(times)
+    print(f"train losses: {losses}")
+    print(f"train median {median!r} ms/step over {len(times)} steps (first "
+          f"step {times[0]!r} ms); peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev)} bytes")
+    return launches, median
+
+
 def phase_train(torch, dev, wrappers):
     from pytorch_points_tpu_torch.models import PointCloudAutoencoder
     from pytorch_points_tpu_torch.parallel import (
@@ -1668,43 +1778,14 @@ def phase_train(torch, dev, wrappers):
         gen = torch.Generator().manual_seed(SEED)
         model = PointCloudAutoencoder(NPOINT1, NPOINT2, device=dev,
                                       generator=gen)
-        first = {}
-        for impl in ("cuda", "torch"):  # the first step's grads, uncounted
-            model.zero_grad(set_to_none=True)
-            loss = reconstruction_loss(impl=impl, **kw)(model, batches[0])
-            loss.backward()
-            first[impl] = (loss.item(), [p.grad.detach().clone()
-                                         for p in model.parameters()])
-        gap = grad_gap(first["cuda"][1], first["torch"][1])
-        print(f"first step: loss kernels {first['cuda'][0]!r} plain "
-              f"{first['torch'][0]!r}; parameter grads max |kernels - plain|"
-              f" / max |plain| = {gap!r} (bar {TRAIN_GRAD_TOL})")
-        if gap > TRAIN_GRAD_TOL or abs(first["cuda"][0] - first["torch"][0]) \
-                > 1e-6 * abs(first["torch"][0]):
-            fail(f"train ({label}): first-step loss or grads differ from the "
-                 "plain versions")
-        model.zero_grad(set_to_none=True)
+        first_step_gate(torch, model, lambda impl, kw=kw: reconstruction_loss(
+            impl=impl, **kw)(model, batches[0]), f"train ({label})")
         step = make_train_step(model,
                                torch.optim.Adam(model.parameters(), 1e-3),
                                reconstruction_loss(**kw))
-        losses, times = [], []
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-
-        def train(step=step, losses=losses, times=times):
-            for batch in batches:
-                t0 = time.perf_counter()
-                losses.append(step(batch).item())  # .item() waits for the card
-                times.append((time.perf_counter() - t0) * 1e3)
-
-        launches.append(drive(wrappers, required, f"train, {label}", train))
-        if not np.isfinite(losses).all():
-            fail(f"train ({label}): non-finite loss {losses}")
-        medians[label] = statistics.median(times)
-        print(f"train losses: {losses}")
-        print(f"train median {medians[label]!r} ms/step over {len(times)} "
-              f"steps (first step {times[0]!r} ms); peak device memory "
-              f"{torch.cuda.max_memory_allocated(dev)} bytes")
+        counts, medians[label] = train_run(torch, dev, wrappers, required,
+                                           label, step, batches)
+        launches.append(counts)
         calls[f"train step, {label}, B={b} N={n}"] = (
             lambda step=step: step(batches[0]).item())
     print("train step medians: " + "; ".join(
@@ -2231,6 +2312,228 @@ def phase_metrics(torch, dev, wrappers):
     return [launches], {}
 
 
+def served(torch, model, x):
+    """One request: ``model(x)`` under inference_mode, to the host."""
+    with torch.inference_mode():
+        return model(x).cpu()
+
+
+def phase_upsampler(torch, dev, wrappers):
+    """Config 7: the full-width PointUpsampler from 2048 to 8192 points at
+    B=8, served, then trained on the Chamfer distance (the sorted scan,
+    K6), then a step on Chamfer + 0.1 repulsion (the ring kNN, K9);
+    UniformLoss on its output, and a DenseEdgeConv graph in feature space
+    (K8 over 24 channels)."""
+    from pytorch_points_tpu_torch.layers import DenseEdgeConv
+    from pytorch_points_tpu_torch.losses import (
+        ChamferLoss,
+        RepulsionLoss,
+        UniformLoss,
+    )
+    from pytorch_points_tpu_torch.models import PointUpsampler
+    from pytorch_points_tpu_torch.ops import (
+        chamfer_distance,
+        chamfer_path,
+        knn_path,
+    )
+    from pytorch_points_tpu_torch.parallel import make_train_step
+
+    b, n, r = CONFIG7["b"], CONFIG7["n"], CONFIG7["ratio"]
+    print(f"== phase 13: config 7, PointUpsampler(ratio={r}) at B={b}, "
+          f"{n} -> {n * r} points: serve, train on chamfer_distance with "
+          f"Adam lr 1e-3, a step on ChamferLoss + 0.1 RepulsionLoss, "
+          f"UniformLoss, DenseEdgeConv on a feature-space graph")
+    rng = np.random.default_rng(SEED + 20)
+    batches = [{"x": torch.from_numpy(cloud(rng, b, n)).to(dev),
+                "y": torch.from_numpy(cloud(rng, b, n * r)).to(dev)}
+               for _ in range(TRAIN_STEPS)]
+    x, y = batches[0]["x"], batches[0]["y"]
+    gen = torch.Generator().manual_seed(SEED)
+    model = PointUpsampler(r, device=dev, generator=gen)
+    launches, calls = [], {}
+
+    with torch.inference_mode():
+        pred = model(x)  # warm-up, uncounted
+        print(f"model: {sum(p.numel() for p in model.parameters())} "
+              f"parameters, channels 24, growth rate 24, dense_n 3, k 16, "
+              f"LayerNorm, f32; chamfer path "
+              f"{chamfer_path(pred, y, reduction='mean')}; repulsion kNN "
+              f"path {knn_path(pred, pred, REPULSION_K)}")
+        err = (pred - model(x, impl="torch")).abs().max().item()
+        if pred.shape != (b, n * r, 3) or not torch.isfinite(pred).all():
+            fail(f"config 7 serve: bad output {tuple(pred.shape)} or "
+                 "non-finite")
+        if err > SERVE_TOL:
+            fail(f"config 7 serve: kernels vs plain versions differ by {err}")
+        lat = []
+
+        def serve():
+            for batch in batches:
+                t0 = time.perf_counter()
+                model(batch["x"]).cpu()  # .cpu() waits for the card
+                lat.append((time.perf_counter() - t0) * 1e3)
+
+        launches.append(drive(wrappers, CONFIG7_SERVE_KERNELS,
+                              "config 7 serve", serve))
+    print(f"config 7 serve median {statistics.median(lat)!r} ms over "
+          f"{len(lat)} requests (device in, numpy out); max |kernels - "
+          f"plain| = {err!r}")
+    calls[f"config 7 serve B={b} N={n}"] = functools.partial(
+        served, torch, model, x)
+
+    def chamfer_loss(m, batch, impl="auto"):
+        return chamfer_distance(m(batch["x"], impl=impl), batch["y"],
+                                impl=impl)
+
+    def repulsion_loss(m, batch, impl="auto"):
+        pred = m(batch["x"], impl=impl)
+        return (ChamferLoss(impl=impl)(pred, batch["y"])
+                + 0.1 * RepulsionLoss(impl=impl)(pred))
+
+    medians = {}
+    for label, loss_fn, required, steps in (
+            ("config 7, chamfer", chamfer_loss, CONFIG7_TRAIN_KERNELS,
+             batches),
+            ("config 7, ChamferLoss + 0.1 RepulsionLoss", repulsion_loss,
+             (*CONFIG7_TRAIN_KERNELS, "knn_ring"), batches[:1])):
+        print(f"-- {label}")
+        first_step_gate(torch, model, lambda impl, f=loss_fn: f(
+            model, batches[0], impl), label)
+        step = make_train_step(model,
+                               torch.optim.Adam(model.parameters(), 1e-3),
+                               loss_fn)
+        counts, medians[label] = train_run(torch, dev, wrappers, required,
+                                           label, step, steps)
+        launches.append(counts)
+        calls[f"train step, {label}, B={b} {n}->{n * r}"] = (
+            lambda step=step: step(batches[0]).item())
+
+    with torch.inference_mode():
+        pred = model(x)
+        got = {}
+
+        def evaluate():
+            got["cuda"] = UniformLoss()(pred).item()
+
+        launches.append(drive(wrappers, UNIFORM_KERNELS,
+                              "config 7 UniformLoss", evaluate))
+        got["torch"] = UniformLoss(impl="torch")(pred).item()
+        print(f"UniformLoss on the prediction: kernels {got['cuda']!r}, "
+              f"plain {got['torch']!r}")
+        if got["cuda"] != got["torch"] or not np.isfinite(got["cuda"]):
+            fail("config 7 UniformLoss differs from the plain versions")
+
+        f = model.lift(x)
+        conv = DenseEdgeConv(24, 24, device=dev, generator=gen)
+        out = {}
+
+        def feature_graph():
+            out["cuda"] = conv(f)
+            torch.cuda.synchronize()
+
+        launches.append(drive(wrappers, CONFIG7_SERVE_KERNELS,
+                              "config 7 DenseEdgeConv, feature-space graph",
+                              feature_graph))
+        err = (out["cuda"] - conv(f, impl="torch")).abs().max().item()
+        print(f"DenseEdgeConv(24, 24), xyz=None, on the lifted features "
+              f"{tuple(f.shape)}: out {tuple(out['cuda'].shape)}, max "
+              f"|kernels - plain| = {err!r}")
+        if not torch.isfinite(out["cuda"]).all() or err > SERVE_TOL:
+            fail("config 7 DenseEdgeConv: kernels vs plain versions differ "
+                 f"by {err}")
+    print("config 7 train step medians: " + "; ".join(
+        f"{label} {ms!r} ms" for label, ms in medians.items()))
+    return launches, calls
+
+
+def phase_semseg(torch, dev, wrappers):
+    """Config 8: the full-width PointNet2SemSeg trained at B=16 N=2048, 13
+    classes, on softmax cross-entropy averaged over every point; its
+    forward on 75%-valid masks; PointNet2Classifier(40) served."""
+    import torch.nn.functional as F
+
+    from pytorch_points_tpu_torch.models import (
+        PointNet2Classifier,
+        PointNet2SemSeg,
+    )
+    from pytorch_points_tpu_torch.parallel import make_train_step
+
+    b, n, c = SEMSEG["b"], SEMSEG["n"], SEMSEG["classes"]
+    print(f"== phase 14: config 8, PointNet2SemSeg({c}) trained at B={b} "
+          f"N={n} with Adam lr 1e-3 on softmax cross-entropy, its masked "
+          f"forward, and PointNet2Classifier({CLASSIFIER_CLASSES}) served")
+    rng = np.random.default_rng(SEED + 21)
+    batches = [{"x": torch.from_numpy(cloud(rng, b, n)).to(dev),
+                "labels": torch.from_numpy(rng.integers(0, c, (b, n))).to(
+                    dev)} for _ in range(TRAIN_STEPS)]
+    gen = torch.Generator().manual_seed(SEED)
+    model = PointNet2SemSeg(c, device=dev, generator=gen)
+    print(f"model: {sum(p.numel() for p in model.parameters())} parameters,"
+          f" npoint {NPOINT1}/{NPOINT2}, LayerNorm, f32")
+
+    def loss_fn(m, batch, impl="auto"):
+        logits = m(batch["x"], impl=impl)
+        return F.cross_entropy(logits.reshape(-1, c),
+                               batch["labels"].reshape(-1))
+
+    label = "config 8, cross-entropy"
+    first_step_gate(torch, model, lambda impl: loss_fn(model, batches[0],
+                                                       impl), label)
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), 1e-3),
+                           loss_fn)
+    counts, median = train_run(torch, dev, wrappers, SEMSEG_KERNELS, label,
+                               step, batches)
+    launches = [counts]
+    calls = {f"train step, {label}, B={b} N={n}":
+             lambda: step(batches[0]).item()}
+
+    x = batches[0]["x"]
+    mask = torch.from_numpy(rng.uniform(size=(b, n)) < VALID_SHARE).to(dev)
+    cls = PointNet2Classifier(CLASSIFIER_CLASSES, device=dev, generator=gen)
+    with torch.inference_mode():
+        out = {}
+
+        def masked_forward():
+            out["logits"] = model(x, mask).cpu()
+
+        launches.append(drive(wrappers, SERVE_KERNELS,
+                              "config 8 masked forward", masked_forward))
+        logits = out["logits"]
+        err = (logits - model(x, mask, impl="torch").cpu()).abs().max()
+        print(f"SemSeg on {VALID_SHARE:.0%}-valid masks: logits "
+              f"{tuple(logits.shape)}, masked rows all 0: "
+              f"{bool((logits[~mask.cpu()] == 0).all())}; max |kernels - "
+              f"plain| = {err.item()!r}")
+        if (not torch.isfinite(logits).all() or err > SERVE_TOL
+                or (logits[~mask.cpu()] != 0).any()):
+            fail("config 8 masked forward: non-finite, unmasked padding or "
+                 "differs from the plain versions")
+
+        cls(x)  # warm-up, uncounted
+        lat = []
+
+        def classify():
+            for batch in batches:
+                t0 = time.perf_counter()
+                out["cls"] = cls(batch["x"]).cpu()
+                lat.append((time.perf_counter() - t0) * 1e3)
+
+        launches.append(drive(wrappers, CLASSIFIER_KERNELS,
+                              "config 8 classifier serve", classify))
+        err = (out["cls"] - cls(batches[-1]["x"], impl="torch").cpu()
+               ).abs().max().item()
+        print(f"classifier serve median {statistics.median(lat)!r} ms over "
+              f"{len(lat)} requests, logits {tuple(out['cls'].shape)}; max "
+              f"|kernels - plain| = {err!r}")
+        if not torch.isfinite(out["cls"]).all() or err > SERVE_TOL:
+            fail(f"config 8 classifier: kernels vs plain versions differ by "
+                 f"{err}")
+    calls[f"config 8 classifier serve B={b} N={n}"] = functools.partial(
+        served, torch, cls, x)
+    print(f"config 8 train step median {median!r} ms")
+    return launches, calls
+
+
 # How the port's kernels show in a trace: every kernel of csrc/ lives in an
 # anonymous namespace at the top level (PyTorch's own sit under at::).
 PORT_ITEMS = ("(anonymous namespace)::", "void (anonymous namespace)::")
@@ -2241,7 +2544,8 @@ def profile_path(torch, label, fn, calls=5):
     calls traced (:func:`traced`): device busy ms per call (the sum of the
     kernels' and copies' own times), the device's idle share of the
     untraced wall time, and the largest device items, then the port's
-    kernels among the rest."""
+    kernels among the rest; for config 6 and 6m also the glue around the
+    ring kernels."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -2262,7 +2566,7 @@ def profile_path(torch, label, fn, calls=5):
         print(f"  {us / 1e3 / counted:10.4f} ms/call {n / counted:7.1f}/call"
               f"  {name[:90]}")
     ring_ms, glue_ms, glue_items = ring_split(dict(items), counted)
-    if ring_ms:
+    if ring_ms and label.startswith("config 6"):  # a kNN call alone
         print(f"  ring kernels {ring_ms!r} ms/call; the glue around them "
               f"{glue_items!r} device items/call, {glue_ms!r} ms/call; host "
               f"wall minus device busy {wall - busy!r} ms/call")
@@ -2381,11 +2685,11 @@ def main() -> int:
                   phase_metrics, phase_knn,
                   functools.partial(phase_knn, masked=True),
                   functools.partial(phase_headline, masked=True),
-                  phase_fused, phase_pruned):
+                  phase_fused, phase_pruned, phase_upsampler, phase_semseg):
         counts, fns = phase(torch, dev, wrappers)
         paths += counts
         calls.update(fns)
-    print("== phase 13: profile one call of each main path")
+    print("== phase 15: profile one call of each main path")
     for label, fn in calls.items():
         profile_path(torch, label, fn)
 

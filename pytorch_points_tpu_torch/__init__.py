@@ -9,8 +9,17 @@ tensors and their plain PyTorch versions on CPU tensors; see
 The top level exports the reference's ported ops under its names
 (``pytorch_points_tpu/__init__.py``); ``batch_normals``,
 ``normalize_point_batch``, ``normalize_to_box`` and
-``voxel_downsample_mask`` are not ported yet. This package imports
-``torch`` and never ``jax``, ``flax`` or ``pytorch_points_tpu``.
+``voxel_downsample_mask`` are not ported yet. ``layers`` holds SharedMLP,
+the PointNet++ SA/FP modules and DenseEdgeConv; ``models`` the
+PointNet2Encoder, PointCloudAutoencoder, PointNet2SemSeg,
+PointNet2Classifier and PointUpsampler; ``losses`` the Chamfer, EMD,
+repulsion and uniformity losses and the metrics. Not ported yet: the host
+side (data loader, trainer, export), ``norm="batch"``, ``remat`` and the
+bf16 ``dtype`` policy, ``sample_and_group_sorted``, ``random_sample``,
+the losses built on ``geo/`` and ``geo/`` itself, ``CageDeformer``,
+``compat.torch_bridge`` and ``parallel/`` beyond the one-device step.
+This package imports ``torch`` and never ``jax``, ``flax`` or
+``pytorch_points_tpu``.
 """
 
 __version__ = "0.1.0"

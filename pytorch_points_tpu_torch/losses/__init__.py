@@ -1,6 +1,11 @@
 """Losses and evaluation metrics (counterpart of the JAX ``losses``)."""
 
-from pytorch_points_tpu_torch.losses.losses import ChamferLoss, EMDLoss
+from pytorch_points_tpu_torch.losses.losses import (
+    ChamferLoss,
+    EMDLoss,
+    RepulsionLoss,
+    UniformLoss,
+)
 from pytorch_points_tpu_torch.losses.metrics import (
     chamfer_l1,
     coverage_and_mmd,
@@ -12,6 +17,8 @@ from pytorch_points_tpu_torch.losses.metrics import (
 __all__ = [
     "ChamferLoss",
     "EMDLoss",
+    "RepulsionLoss",
+    "UniformLoss",
     "chamfer_l1",
     "coverage_and_mmd",
     "fscore",

@@ -1,6 +1,10 @@
 from pytorch_points_tpu_torch.models.pointnet2 import (
     PointCloudAutoencoder,
+    PointNet2Classifier,
     PointNet2Encoder,
+    PointNet2SemSeg,
 )
+from pytorch_points_tpu_torch.models.upsampler import PointUpsampler
 
-__all__ = ["PointCloudAutoencoder", "PointNet2Encoder"]
+__all__ = ["PointCloudAutoencoder", "PointNet2Classifier", "PointNet2Encoder",
+           "PointNet2SemSeg", "PointUpsampler"]

@@ -2,8 +2,10 @@
 
 ``PointCloudAutoencoder`` is the flagship: FPS + grouping through SA layers
 down to a global code, FP layers (three_nn + three_interpolate) back up, and
-a coordinate head. It serves (forward) and trains: every op on its path is
-a ``torch.autograd.Function`` with the reference's backward rule
+a coordinate head. ``PointNet2SemSeg`` is the same SA + FP stack with a
+per-point logits head, ``PointNet2Classifier`` the SA encoder with a head
+on the global code. They serve (forward) and train: every op on their paths
+is a ``torch.autograd.Function`` with the reference's backward rule
 (``parallel/data_parallel.py`` builds the train step).
 """
 
@@ -17,6 +19,24 @@ from pytorch_points_tpu_torch.layers import (
     PointNetSAModule,
     SharedMLP,
 )
+
+
+def _build_fp_stack(model: nn.Module, kw: dict) -> None:
+    """The fp3/fp2/fp1 decoder stack for the SSG encoder's (128, 256, 1024)
+    feature hierarchy, as attributes of ``model``."""
+    model.fp3 = PointNetFPModule(1024 + 256, [256, 256], **kw)
+    model.fp2 = PointNetFPModule(256 + 128, [256, 128], **kw)
+    model.fp1 = PointNetFPModule(128, [128, 128], **kw)
+
+
+def _fp_decode(model: nn.Module, xyzs, feats, impl: str) -> torch.Tensor:
+    """The FP stack's wiring back up the SA hierarchy: the encoder's
+    (xyz, xyz1, xyz2, xyz3), (None, f1, f2, f3) -> per-point features
+    [B,N,128]."""
+    (x0, x1, x2, x3), (_, f1, f2, f3) = xyzs, feats
+    g2 = model.fp3(x2, x3, f2, f3, impl=impl)  # x3 is [B,1,3]: broadcast
+    g1 = model.fp2(x1, x2, f1, g2, impl=impl)
+    return model.fp1(x0, x1, None, g1, impl=impl)
 
 
 class PointNet2Encoder(nn.Module):
@@ -62,20 +82,60 @@ class PointCloudAutoencoder(nn.Module):
             generator = torch.Generator().manual_seed(0)
         kw = dict(norm=norm, device=device, generator=generator)
         self.encoder = PointNet2Encoder(npoint1, npoint2, **kw)
-        self.fp3 = PointNetFPModule(1024 + 256, [256, 256], **kw)
-        self.fp2 = PointNetFPModule(256 + 128, [256, 128], **kw)
-        self.fp1 = PointNetFPModule(128, [128, 128], **kw)
+        _build_fp_stack(self, kw)
         self.head = SharedMLP([128, 64, 3], act_last=False, **kw)
 
     def forward(self, xyz: torch.Tensor, mask: torch.Tensor | None = None,
                 impl: str = "auto") -> torch.Tensor:
         """[B,N,3] (+ [B,N] bool mask) -> reconstruction [B,N,3]; masked
         rows are 0. ``impl`` selects the kernels' route (kernels.dispatch)."""
-        (x0, x1, x2, x3), (_, f1, f2, f3) = self.encoder(xyz, mask, impl)
-        g2 = self.fp3(x2, x3, f2, f3, impl=impl)  # x3 is [B,1,3]: broadcast
-        g1 = self.fp2(x1, x2, f1, g2, impl=impl)
-        g0 = self.fp1(x0, x1, None, g1, impl=impl)
+        g0 = _fp_decode(self, *self.encoder(xyz, mask, impl), impl)
         pred = xyz + self.head(g0)
         if mask is not None:
             pred = torch.where(mask[..., None], pred, 0.0)
         return pred
+
+
+class PointNet2Classifier(nn.Module):
+    """The PointNet++ SSG classifier: the SA encoder at its defaults, then
+    a head on the global code: [B,N,3] -> logits [B,num_classes]."""
+
+    def __init__(self, num_classes: int = 40, *, device="cuda",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        kw = dict(device=device, generator=generator)
+        self.encoder = PointNet2Encoder(**kw)
+        self.head = SharedMLP([1024, 512, 256, num_classes], act_last=False,
+                              **kw)
+
+    def forward(self, xyz: torch.Tensor, mask: torch.Tensor | None = None,
+                impl: str = "auto") -> torch.Tensor:
+        _, feats = self.encoder(xyz, mask, impl)
+        return self.head(feats[3][:, 0, :])
+
+
+class PointNet2SemSeg(nn.Module):
+    """PointNet++ SSG semantic segmentation: the autoencoder's SA encoder
+    and FP decoder with a per-point class head: [B,N,3] -> logits
+    [B,N,num_classes]; masked rows are 0."""
+
+    def __init__(self, num_classes: int, *, npoint1: int = 512,
+                 npoint2: int = 128, norm: str | None = "layer",
+                 device="cuda", generator: torch.Generator | None = None):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        kw = dict(norm=norm, device=device, generator=generator)
+        self.encoder = PointNet2Encoder(npoint1, npoint2, **kw)
+        _build_fp_stack(self, kw)
+        self.head = SharedMLP([128, 128, num_classes], act_last=False, **kw)
+
+    def forward(self, xyz: torch.Tensor, mask: torch.Tensor | None = None,
+                impl: str = "auto") -> torch.Tensor:
+        logits = self.head(_fp_decode(self, *self.encoder(xyz, mask, impl),
+                                      impl))
+        if mask is not None:
+            logits = torch.where(mask[..., None], logits, 0.0)
+        return logits

@@ -27,8 +27,15 @@ from pytorch_points_tpu_torch.kernels import (
     scatter,
     topk_scan,
 )
-from pytorch_points_tpu_torch.models import PointCloudAutoencoder
-from pytorch_points_tpu_torch.ops import earth_mover_distance
+from pytorch_points_tpu_torch.layers import DenseEdgeConv
+from pytorch_points_tpu_torch.losses import RepulsionLoss, UniformLoss
+from pytorch_points_tpu_torch.models import (
+    PointCloudAutoencoder,
+    PointNet2Classifier,
+    PointNet2SemSeg,
+    PointUpsampler,
+)
+from pytorch_points_tpu_torch.ops import chamfer_distance, earth_mover_distance
 from pytorch_points_tpu_torch.parallel import (
     make_train_step,
     reconstruction_loss,
@@ -1280,3 +1287,81 @@ def test_config5_train_step_makes_no_host_sync(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert np.isfinite(loss.item())
+
+
+def _new_model_case(name, dev):
+    """(model, inputs, loss(output)) of one of config 7's and config 8's
+    modules at a card-test size: config 7's paths at their full widths
+    (the upsampler from 2048 to 8192 points, so its Chamfer takes the
+    sorted scan and its repulsion the ring kNN), config 8's at the sizes
+    of the autoencoder's card tests."""
+    rng = np.random.default_rng(17)
+    if name.startswith("edgeconv"):
+        f, w = _on(dev, rng.standard_normal((2, 2048, 24)).astype(np.float32),
+                   rng.standard_normal((2, 2048, 96)).astype(np.float32))
+        xyz, mask = _on(dev, cloud(rng, 2, 2048), rng.uniform(
+            size=(2, 2048)) < 0.75)
+        model = DenseEdgeConv(24, 24, device=dev)
+        inputs = ((f,), dict(xyz=None if name == "edgeconv_features" else xyz,
+                             mask=mask))
+        return model, inputs, lambda out: (out * w).sum()
+    if name == "upsampler":
+        x, gt = _on(dev, cloud(rng, 2, 2048), cloud(rng, 2, 8192))
+        return (PointUpsampler(device=dev), ((x,), {}),
+                lambda out: chamfer_distance(out, gt)
+                + 0.1 * RepulsionLoss()(out))
+    xyz, mask = autoencoder_inputs(masked=True)
+    x, m = _on(dev, xyz, mask)
+    if name == "semseg":
+        labels = torch.from_numpy(rng.integers(0, 13, xyz.shape[:2])).to(dev)
+        return (PointNet2SemSeg(13, npoint1=128, npoint2=32, device=dev),
+                ((x,), dict(mask=m)),
+                lambda out: torch.nn.functional.cross_entropy(
+                    out.reshape(-1, 13), labels.reshape(-1)))
+    labels = torch.from_numpy(rng.integers(0, 40, xyz.shape[:1])).to(dev)
+    return (PointNet2Classifier(40, device=dev), ((x,), dict(mask=m)),
+            lambda out: torch.nn.functional.cross_entropy(out, labels))
+
+
+@pytest.mark.parametrize("name", ["edgeconv_xyz", "edgeconv_features",
+                                  "upsampler", "semseg", "classifier"])
+def test_config7_and_8_modules_cuda_match_plain(dev, name):
+    """Forward within 1e-5 of the plain versions on the card; one backward,
+    each parameter grad within 1e-4 of the plain version's largest."""
+    model, (args, kw), loss = _new_model_case(name, dev)
+    with torch.inference_mode():
+        got = model(*args, **kw, impl="cuda")
+        ref = model(*args, **kw, impl="torch")
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+    grads = {}
+    for impl in ("cuda", "torch"):
+        model.zero_grad(set_to_none=True)
+        loss(model(*args, **kw, impl=impl)).backward()
+        grads[impl] = [p.grad.clone() for p in model.parameters()]
+    for g, r in zip(grads["cuda"], grads["torch"], strict=True):
+        torch.testing.assert_close(g, r, rtol=0,
+                                   atol=1e-4 * r.abs().max().item())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_repulsion_and_uniform_losses_cuda_match_plain(dev, masked):
+    """Config 7's losses on an 8192-point cloud: the repulsion through the
+    ring kNN (K9, or K10 masked) and its input grad, the uniformity's counts
+    through FPS (K1) and the gather (K3), equal to the plain versions."""
+    rng = np.random.default_rng(18)
+    x, mask = _on(dev, cloud(rng, 2, 8192),
+                  rng.uniform(size=(2, 8192)) < 0.75 if masked else None)
+    out = {}
+    for impl in ("cuda", "torch"):
+        xi = x.clone().requires_grad_()
+        rep = RepulsionLoss(impl=impl)(xi, mask)
+        rep.backward()
+        out[impl] = (rep.detach(), xi.grad,
+                     UniformLoss(impl=impl)(x, mask))
+    torch.testing.assert_close(out["cuda"][0], out["torch"][0], rtol=1e-6,
+                               atol=0)
+    scale = out["torch"][1].abs().max().item()
+    torch.testing.assert_close(out["cuda"][1], out["torch"][1], rtol=0,
+                               atol=1e-4 * scale)
+    assert torch.equal(out["cuda"][2], out["torch"][2])
