@@ -152,11 +152,29 @@ Phases, in order; any failure raises and exits non-zero:
    of plain); PointNet2Classifier(40) served at B=16 N=2048 within 1e-5
    of plain.
 
-Phases 3-14 are the main paths. Each sets every kernel's launch count to 0
+15. config 10 (bench.py's config 10): 32 PLY clouds of 380-676 points
+   written to a git-ignored directory of the checkout (``make_dataset``,
+   the example's files), read by ``PlyFolderDataset`` through the native
+   library (built with g++ here; the phase fails if it does not load),
+   batched by ``BucketedBatcher(batch_size=4, multiple=128, max_buckets=2,
+   shuffle=True, seed=0, drop_remainder=True)``, and the full-width
+   ``PointCloudAutoencoder(npoint1=96, npoint2=24)`` trained on the masked
+   chamfer with Adam at 1e-3 by ``utils.Trainer``. Gated: one step on a
+   fixed batch, kernels against the plain versions (phase 4's gate: loss
+   rtol 1e-6, grads TRAIN_GRAD_TOL); then one warm epoch (logged every step, checkpointed),
+   4 epochs through ``Prefetcher(depth=2)`` timed on the host clock to one
+   sync at the end (ms/step as bench.py takes it), the first and last loss
+   finite and the last lower, the device's busy and idle share over two
+   more traced epochs, the checkpoint restored bitwise into a fresh model,
+   and ``utils.export_forward`` of the trained model saved, loaded and run
+   on the card: equal to the eager forward bitwise, with the kernels'
+   launch counts rising during the loaded program's call.
+
+Phases 3-15 are the main paths. Each sets every kernel's launch count to 0
 just before each of its runs and reads them just after, and fails if a
 kernel of that run's path was never launched.
 
-15. profile: one call of each main path, traced with torch.profiler after
+16. profile: one call of each main path, traced with torch.profiler after
    its untraced timing: wall ms, device busy ms and idle share per call,
    the largest device items and the port's kernels among the rest; for
    config 6 and 6m also the glue around the ring kernels (its device items
@@ -173,6 +191,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -231,6 +250,9 @@ CONFIG7 = dict(b=8, n=2048, k=17, ratio=4)
 REPULSION_K = 5  # RepulsionLoss's kNN: k = 4 and self
 SEMSEG = dict(b=16, n=2048, classes=13)  # config 8 (bench.py:363-384)
 CLASSIFIER_CLASSES = 40
+# config 10 (bench.py:412-466): dataset, batcher, model and timed epochs
+CONFIG10 = dict(count=32, batch=4, multiple=128, max_buckets=2, npoint1=96,
+                npoint2=24, epochs=4, depth=2, traced_epochs=2)
 AUCTION_PHASES = 9  # past the 8 phases one K11 launch holds
 SPLIT_KERNELS = ("gather", "scatter", "knn", "nn_dense")  # device-only
 SMS, LANES_PER_SM = 132, 4 * 32  # H100 SXM: 4 schedulers of 32 lanes an SM
@@ -288,6 +310,7 @@ CONFIG7_TRAIN_KERNELS = ("knn", "gather", "scatter", "nn_band",
 UNIFORM_KERNELS = ("fps", "gather")
 SEMSEG_KERNELS = (*SERVE_KERNELS, "scatter")
 CLASSIFIER_KERNELS = ("fps", "ball_query", "gather")
+CONFIG10_KERNELS = TRAIN_KERNELS
 
 
 def fail(msg: str) -> None:
@@ -323,6 +346,30 @@ def cuda_ms(torch, fn) -> float:
 
 def cloud(rng, b, n):
     return rng.uniform(-1, 1, (b, n, 3)).astype(np.float32)
+
+
+def make_dataset(root: str, count: int = 24, seed: int = 0) -> None:
+    """Write ``count`` PLY clouds: icosphere / grid templates under random
+    smooth deformations, each a random subset of 380 to 641 or 675 of the
+    vertices. The same files as ``examples/train_on_ply_dataset.py``'s
+    ``make_dataset`` (which imports JAX), on the port's geometry_utils and
+    pc_utils."""
+    from pytorch_points_tpu_torch.utils import geometry_utils, pc_utils
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    sphere, _ = geometry_utils.generate_icosphere(3)  # 642 verts
+    grid, _ = geometry_utils.generate_grid_mesh(26, 26)  # 676 verts
+    for i in range(count):
+        base = sphere if i % 2 == 0 else grid
+        freq = rng.uniform(1.0, 3.0, (3,))
+        amp = rng.uniform(0.1, 0.35)
+        phase = rng.uniform(0, 2 * np.pi, (3,))
+        pts = base + amp * np.sin(base * freq + phase)
+        n = int(rng.integers(380, len(pts)))
+        idx = rng.choice(len(pts), n, replace=False)
+        pc_utils.save_ply(pts[idx].astype(np.float32),
+                          os.path.join(root, f"cloud_{i:03d}.ply"))
 
 
 def head_pred(rng):
@@ -2534,6 +2581,165 @@ def phase_semseg(torch, dev, wrappers):
     return launches, calls
 
 
+def config10_loss(m, batch, impl="auto"):
+    """bench.py's config-10 loss: the masked chamfer of the reconstruction."""
+    from pytorch_points_tpu_torch.ops import chamfer_distance
+
+    pred = m(batch["points"], batch["mask"], impl=impl)
+    return chamfer_distance(pred, batch["points"], p_mask=batch["mask"],
+                            q_mask=batch["mask"], impl=impl)
+
+
+def phase_config10(torch, dev, wrappers):
+    """Config 10: PLY folder -> BucketedBatcher -> Prefetcher -> Trainer,
+    with the native reader, a checkpoint and an export round trip, in a
+    directory under the checkout's git-ignored build/."""
+    import tempfile
+
+    from pytorch_points_tpu_torch import _native
+
+    cfg = CONFIG10
+    print(f"== phase 15: config 10, {cfg['count']} PLY clouds -> "
+          f"BucketedBatcher(B={cfg['batch']}, multiple={cfg['multiple']}, "
+          f"max_buckets={cfg['max_buckets']}) -> Prefetcher -> Trainer, "
+          f"PointCloudAutoencoder({cfg['npoint1']}, {cfg['npoint2']}), masked "
+          "chamfer, Adam lr 1e-3")
+    t0 = time.perf_counter()
+    native = _native.available()
+    print(f"native library: loaded {native} in {time.perf_counter() - t0!r} "
+          f"s (g++ into {_native.BUILD_DIR.relative_to(ROOT)})")
+    if not native:
+        fail("config 10: the native host library did not build or load")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="config10_",
+                                     dir=ROOT / "build") as work:
+        return config10_run(torch, dev, wrappers, Path(work))
+
+
+def config10_run(torch, dev, wrappers, work):
+    from pytorch_points_tpu_torch.data import (
+        BucketedBatcher,
+        PlyFolderDataset,
+        Prefetcher,
+    )
+    from pytorch_points_tpu_torch.models import PointCloudAutoencoder
+    from pytorch_points_tpu_torch.utils import (
+        Trainer,
+        export_forward,
+        load_exported,
+    )
+
+    cfg = CONFIG10
+    make_dataset(str(work / "ply"), count=cfg["count"])
+    ds = PlyFolderDataset(str(work / "ply"))
+    sizes = [ds[i].shape[0] for i in range(len(ds))]
+
+    def batcher():
+        return BucketedBatcher(ds, batch_size=cfg["batch"],
+                               multiple=cfg["multiple"],
+                               max_buckets=cfg["max_buckets"], shuffle=True,
+                               seed=0, drop_remainder=True)
+
+    batches = batcher()
+    per_epoch = sum(1 for _ in batcher())
+    print(f"dataset: {len(ds)} clouds of {min(sizes)}-{max(sizes)} points; "
+          f"buckets {batches.buckets}; {per_epoch} batches an epoch")
+
+    def on_card(b):
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    def stream(epochs):
+        for _ in range(epochs):
+            for b in batches:
+                yield on_card(b)
+
+    gen = torch.Generator().manual_seed(SEED)
+    model = PointCloudAutoencoder(cfg["npoint1"], cfg["npoint2"], device=dev,
+                                  generator=gen)
+    fixed = on_card(next(iter(batcher())))
+    first_step_gate(torch, model, lambda impl: config10_loss(model, fixed,
+                                                             impl),
+                    "config 10")
+
+    losses = []
+    trainer = Trainer(model, torch.optim.Adam(model.parameters(), 1e-3),
+                      config10_loss, ckpt_dir=str(work / "ckpt"),
+                      log_every=1, ckpt_every=10**9)
+    trainer.fit(stream(1), on_log=lambda step, loss: losses.append(loss))
+    warm_steps = trainer.step
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+    # timed as bench.py times it: no log point and no checkpoint inside
+    trainer.log_every, trainer.ckpt_dir = 10**9, None
+    out = {}
+
+    def timed():
+        t0 = time.perf_counter()
+        out["last"] = trainer.fit(Prefetcher(stream(cfg["epochs"]),
+                                             depth=cfg["depth"]))
+        out["s"] = time.perf_counter() - t0  # fit ends on the loss's .item()
+
+    launches = [drive(wrappers, CONFIG10_KERNELS, "config 10 training",
+                      timed)]
+    steps = trainer.step - warm_steps
+    ms_step = out["s"] * 1e3 / steps
+    print(f"config 10: {ms_step!r} ms/step over {steps} steps timed "
+          f"({cfg['epochs']} epochs through Prefetcher(depth="
+          f"{cfg['depth']}) after {warm_steps} warm steps); loss first "
+          f"{losses[0]!r}, last {out['last']!r}")
+    if not (np.isfinite(losses).all() and np.isfinite(out["last"])
+            and out["last"] < losses[0]):
+        fail(f"config 10: losses not finite or not lower: first "
+             f"{losses[0]}, warm epoch {losses}, last {out['last']}")
+
+    def epoch():
+        trainer.fit(Prefetcher(stream(1), depth=cfg["depth"]))
+
+    items, counted, marker = traced(torch, epoch, cfg["traced_epochs"])
+    busy = sum(us for us, _ in items.values()) / 1e3 / (counted * per_epoch)
+    print(f"config 10 device busy {busy!r} ms/step over {counted} traced "
+          f"epochs; idle share {1 - busy / ms_step!r} of the untraced "
+          f"{ms_step!r} ms/step{marker}")
+
+    fresh = PointCloudAutoencoder(
+        cfg["npoint1"], cfg["npoint2"], device=dev,
+        generator=torch.Generator().manual_seed(SEED + 1))
+    restorer = Trainer(fresh, torch.optim.Adam(fresh.parameters()),
+                       config10_loss, ckpt_dir=str(work / "ckpt"))
+    restorer.restore(step=warm_steps)
+    if any(not torch.equal(v, snapshot[k])
+           for k, v in fresh.state_dict().items()):
+        fail("config 10: the restored checkpoint differs from the model")
+    print(f"checkpoint of step {warm_steps} restored bitwise into a fresh "
+          "model")
+
+    x = fixed["points"]
+    path = work / "autoencoder.pt2"
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        blob = export_forward(model, x, path=str(path))
+        program = load_exported(str(path))
+        print(f"export_forward: {len(blob)} bytes in "
+              f"{time.perf_counter() - t0!r} s (export, save, load)")
+        want = model(x)
+        got = {}
+
+        def loaded():
+            got["y"] = program(x)
+            torch.cuda.synchronize()
+
+        launches.append(drive(wrappers, SERVE_KERNELS,
+                              "config 10 exported forward", loaded))
+        same = torch.equal(got["y"], want)
+        print(f"exported forward equal to eager bitwise: {same}; max |diff| "
+              f"{(got['y'] - want).abs().max().item()!r}")
+        if not same:
+            fail("config 10: the exported program differs from the eager "
+                 "forward")
+    return launches, {
+        f"config 10 train step, bucket {tuple(x.shape)}":
+            lambda: trainer.step_fn(fixed).item()}
+
+
 # How the port's kernels show in a trace: every kernel of csrc/ lives in an
 # anonymous namespace at the top level (PyTorch's own sit under at::).
 PORT_ITEMS = ("(anonymous namespace)::", "void (anonymous namespace)::")
@@ -2685,11 +2891,12 @@ def main() -> int:
                   phase_metrics, phase_knn,
                   functools.partial(phase_knn, masked=True),
                   functools.partial(phase_headline, masked=True),
-                  phase_fused, phase_pruned, phase_upsampler, phase_semseg):
+                  phase_fused, phase_pruned, phase_upsampler, phase_semseg,
+                  phase_config10):
         counts, fns = phase(torch, dev, wrappers)
         paths += counts
         calls.update(fns)
-    print("== phase 15: profile one call of each main path")
+    print("== phase 16: profile one call of each main path")
     for label, fn in calls.items():
         profile_path(torch, label, fn)
 

@@ -13,11 +13,14 @@ The top level exports the reference's ported ops under its names
 the PointNet++ SA/FP modules and DenseEdgeConv; ``models`` the
 PointNet2Encoder, PointCloudAutoencoder, PointNet2SemSeg,
 PointNet2Classifier and PointUpsampler; ``losses`` the Chamfer, EMD,
-repulsion and uniformity losses and the metrics. Not ported yet: the host
-side (data loader, trainer, export), ``norm="batch"``, ``remat`` and the
-bf16 ``dtype`` policy, ``sample_and_group_sorted``, ``random_sample``,
-the losses built on ``geo/`` and ``geo/`` itself, ``CageDeformer``,
-``compat.torch_bridge`` and ``parallel/`` beyond the one-device step.
+repulsion and uniformity losses and the metrics. The host side: ``data``
+(PLY dataset, bucketed batcher, prefetcher, augmentation), ``utils``
+(I/O, checkpoints, Trainer, timing, profiling, export), ``misc`` (the
+logger) and ``_native`` (the C++ host library, built with g++ at first
+use). Not ported yet: ``norm="batch"``, ``remat`` and the bf16 ``dtype``
+policy, ``sample_and_group_sorted``, the losses built on ``geo/`` and
+``geo/`` itself, ``CageDeformer``, ``compat.torch_bridge`` and
+``parallel/`` beyond the one-device step.
 This package imports ``torch`` and never ``jax``, ``flax`` or
 ``pytorch_points_tpu``.
 """

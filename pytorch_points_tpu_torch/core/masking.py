@@ -14,6 +14,9 @@ offsets as the reference, so both packages see the same distances.
 
 from __future__ import annotations
 
+import math
+from collections.abc import Sequence
+
 import torch
 
 # Large-but-finite poison offset: distances to poisoned points are
@@ -23,10 +26,16 @@ BIG_COORD = 2.0e4
 BIG_DISTANCE = 1.0e9
 
 
-def lengths_to_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
-    """[B] int lengths -> [B, max_len] bool validity mask."""
+def lengths_to_mask(lengths, max_len: int) -> torch.Tensor:
+    """[B] int lengths (a tensor, or anything ``torch.as_tensor`` takes) ->
+    [B, max_len] bool validity mask."""
+    lengths = torch.as_tensor(lengths)
     idx = torch.arange(max_len, device=lengths.device)[None, :]
     return idx < lengths[:, None]
+
+
+# Alias matching the more common naming in other libraries.
+mask_from_lengths = lengths_to_mask
 
 
 def poison_points(xyz: torch.Tensor, mask: torch.Tensor | None,
@@ -63,3 +72,34 @@ def pad_points(xyz: torch.Tensor, target_n: int, axis: int = -2):
                        device=xyz.device)
     mask[..., :n] = True
     return padded, mask
+
+
+def bucket_sizes(sizes: Sequence[int], *, multiple: int = 256,
+                 max_buckets: int = 8) -> list[int]:
+    """Choose static bucket sizes covering the given cloud sizes.
+
+    Buckets are multiples of ``multiple``; each size is padded up to the
+    smallest covering bucket. With more distinct rounded sizes than
+    ``max_buckets``, a quantile spread of them is kept, always with the
+    largest. Pure host-side Python: the same sizes give the reference's
+    buckets.
+    """
+    if not sizes:
+        return []
+    uniq = sorted({int(math.ceil(s / multiple)) * multiple for s in sizes})
+    if len(uniq) <= max_buckets:
+        return uniq
+    picks = {uniq[-1]}
+    for q in range(1, max_buckets):
+        picks.add(uniq[int(round(q * (len(uniq) - 1) / max_buckets))])
+    return sorted(picks)
+
+
+def pad_to_bucket(xyz: torch.Tensor, buckets: Sequence[int]):
+    """Pad a single cloud [N, C] to its covering bucket; returns (padded,
+    mask)."""
+    n = xyz.shape[-2]
+    for b in sorted(buckets):
+        if n <= b:
+            return pad_points(xyz, b)
+    raise ValueError(f"no bucket >= {n} in {list(buckets)}")

@@ -118,6 +118,22 @@ def ball_query_cuda(xyz: torch.Tensor, centroids: torch.Tensor,
 ball_query_cuda.launches = 0
 
 
+@torch.library.custom_op("ppt::ball_query", mutates_args=())
+def _ball_query_op(xyz: torch.Tensor, centroids: torch.Tensor, radius: float,
+                   nsample: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2 as one op for a traced program (kernels.dispatch.traced)."""
+    if xyz.is_cuda:
+        return ball_query_cuda(xyz, centroids, radius, nsample)
+    return ball_query_torch(xyz, centroids, radius, nsample)
+
+
+@_ball_query_op.register_fake
+def _(xyz, centroids, radius, nsample):
+    b, p = centroids.shape[:2]
+    return (xyz.new_empty((b, p, nsample), dtype=torch.int32),
+            xyz.new_empty((b, p), dtype=torch.int32))
+
+
 def ball_query(xyz: torch.Tensor, centroids: torch.Tensor, radius: float,
                nsample: int, mask: torch.Tensor | None = None,
                tp: int | None = None, tm: int | None = None,
@@ -135,7 +151,11 @@ def ball_query(xyz: torch.Tensor, centroids: torch.Tensor, radius: float,
     del tp, tm  # every form and tiling gives the same bits
     xyz = poison_points(xyz.to(torch.float32), mask, sign=-1.0)
     centroids = centroids.to(torch.float32)
-    if dispatch.resolve(impl, xyz, "ball_query") == "cuda":
+    route = dispatch.resolve(impl, xyz, "ball_query")
+    if dispatch.traced(impl) and counts is None:
+        return _ball_query_op(xyz.contiguous(), centroids.contiguous(),
+                              radius, nsample)
+    if route == "cuda":
         return ball_query_cuda(xyz.contiguous(), centroids.contiguous(),
                                radius, nsample, counts)
     return ball_query_torch(xyz, centroids, radius, nsample, counts)
@@ -182,6 +202,26 @@ def ball_query_coords_cuda(xyz: torch.Tensor, centroids: torch.Tensor,
 ball_query_coords_cuda.launches = 0
 
 
+@torch.library.custom_op("ppt::ball_query_coords", mutates_args=())
+def _ball_query_coords_op(xyz: torch.Tensor, centroids: torch.Tensor,
+                          radius: float, nsample: int, p0: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """K2's coordinate instance as one op for a traced program
+    (kernels.dispatch.traced)."""
+    if xyz.is_cuda:
+        return ball_query_coords_cuda(xyz, centroids, radius, nsample, p0)
+    return ball_query_coords_torch(xyz, centroids, radius, nsample, p0)
+
+
+@_ball_query_coords_op.register_fake
+def _(xyz, centroids, radius, nsample, p0):
+    b, p = centroids.shape[:2]
+    return (xyz.new_empty((b, p, nsample), dtype=torch.int32),
+            xyz.new_empty((b, p), dtype=torch.int32),
+            xyz.new_empty((b, p, nsample, 3)))
+
+
 def ball_query_and_group_coords(xyz: torch.Tensor, centroids: torch.Tensor,
                                 radius: float, nsample: int,
                                 mask: torch.Tensor | None = None,
@@ -211,7 +251,11 @@ def ball_query_and_group_coords(xyz: torch.Tensor, centroids: torch.Tensor,
     centroids = centroids.detach().to(torch.float32).contiguous()
     sup = poison_points(raw, mask, sign=-1.0)
     p0 = raw[:, 0, :].contiguous()
-    if dispatch.resolve(impl, sup, "ball_query_coords") == "cuda":
+    route = dispatch.resolve(impl, sup, "ball_query_coords")
+    if dispatch.traced(impl) and counts is None:
+        return _ball_query_coords_op(sup.contiguous(), centroids, radius,
+                                     nsample, p0)
+    if route == "cuda":
         return ball_query_coords_cuda(sup.contiguous(), centroids, radius,
                                       nsample, p0, counts)
     return ball_query_coords_torch(sup, centroids, radius, nsample, p0,

@@ -9,6 +9,13 @@ Every public op takes ``impl`` in {"auto", "cuda", "torch"}:
 * "torch" runs the plain version wherever the tensor lies. It is the only
   way from a CUDA tensor to the plain version (used to hold the kernels
   against their plain versions on the card).
+
+While torch.export (or torch.compile) traces a call, a kernel that is a
+ctypes call on data pointers cannot be traced; the ops on the
+autoencoder's forward and the dense chamfer (K1, K2 and its coordinate
+instance, K3, K8, K5) then go through their ``torch.library`` custom ops
+(``ppt::*``), which launch the kernel on a CUDA tensor and run the plain
+version on a CPU one: :func:`traced` says when.
 """
 
 from __future__ import annotations
@@ -38,3 +45,10 @@ def resolve(impl: str, x: torch.Tensor, op: str) -> str:
         if op not in AVAILABLE:
             raise NotImplementedError(f"{op}: no CUDA kernel yet")
     return impl
+
+
+def traced(impl: str) -> bool:
+    """Whether an op goes through its ``ppt::`` custom op: while torch
+    traces it, unless the caller asked for the plain version (whose torch
+    ops are traced as they are)."""
+    return impl != "torch" and torch.compiler.is_compiling()

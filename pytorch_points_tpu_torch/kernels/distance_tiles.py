@@ -106,6 +106,23 @@ nn_one_direction_cuda.launches = 0
 nn_both_directions_cuda.launches = 0
 
 
+@torch.library.custom_op("ppt::nn_both_directions", mutates_args=())
+def _nn_both_op(p: torch.Tensor, q: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    """K5 as one op for a traced program (kernels.dispatch.traced)."""
+    if p.is_cuda:
+        return nn_both_directions_cuda(p, q)
+    return (*nn_one_direction_torch(p, q), *nn_one_direction_torch(q, p))
+
+
+@_nn_both_op.register_fake
+def _(p, q):
+    (b, n), m = p.shape[:2], q.shape[1]
+    return (p.new_empty((b, n)), p.new_empty((b, n), dtype=torch.int32),
+            p.new_empty((b, m)), p.new_empty((b, m), dtype=torch.int32))
+
+
 def nn_one_direction(p: torch.Tensor, q: torch.Tensor, tn: int | None = None,
                      tm: int | None = None, impl: str = "auto"):
     """For each p point, (min squared distance over q, argmin index):
@@ -138,7 +155,10 @@ def nn_both_directions(p: torch.Tensor, q: torch.Tensor,
         raise ValueError("nn_both_directions needs two non-empty clouds")
     p = p.to(torch.float32)
     q = q.to(torch.float32)
-    if dispatch.resolve(impl, p, "nn_dense") == "cuda":
+    route = dispatch.resolve(impl, p, "nn_dense")
+    if dispatch.traced(impl):
+        return _nn_both_op(p.contiguous(), q.contiguous())
+    if route == "cuda":
         return nn_both_directions_cuda(p.contiguous(), q.contiguous())
     return (*nn_one_direction_torch(p, q), *nn_one_direction_torch(q, p))
 

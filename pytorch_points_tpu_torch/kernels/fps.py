@@ -87,6 +87,23 @@ def fps_cuda(xyz: torch.Tensor, k: int, mask: torch.Tensor | None = None,
 fps_cuda.launches = 0
 
 
+@torch.library.custom_op("ppt::fps", mutates_args=())
+def _fps_op(xyz: torch.Tensor, k: int, mask: torch.Tensor | None,
+            seed_idx: torch.Tensor | None) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """K1 as one op for a traced program (kernels.dispatch.traced)."""
+    if xyz.is_cuda:
+        return fps_cuda(xyz, k, mask, seed_idx)
+    return fps_torch(xyz, k, mask, seed_idx)
+
+
+@_fps_op.register_fake
+def _(xyz, k, mask, seed_idx):
+    b = xyz.shape[0]
+    return (xyz.new_empty((b, k), dtype=torch.int32),
+            xyz.new_empty((b, k, 3)))
+
+
 def fps_step_floor(n: int, iters: int = 4096,
                    device: str | torch.device = "cuda"):
     """(cycles, ns) of one empty step on the block :func:`fps_cuda` takes
@@ -117,12 +134,14 @@ def furthest_point_sample(xyz: torch.Tensor, k: int,
     if xyz.ndim != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"expected [B,N,3], got {tuple(xyz.shape)}")
     xyz = xyz.to(torch.float32)
-    if dispatch.resolve(impl, xyz, "fps") == "cuda":
+    traced = dispatch.traced(impl)
+    if dispatch.resolve(impl, xyz, "fps") == "cuda" or traced:
         if seed_idx is not None:
             seed_idx = seed_idx.to(torch.int32).contiguous()
-        idx, coords = fps_cuda(xyz.contiguous(), k,
-                               None if mask is None else mask.contiguous(),
-                               seed_idx)
+        launch = _fps_op if traced else fps_cuda
+        idx, coords = launch(xyz.contiguous(), k,
+                             None if mask is None else mask.contiguous(),
+                             seed_idx)
     else:
         idx, coords = fps_torch(xyz, k, mask, seed_idx)
     return (idx, coords) if emit_coords else idx

@@ -47,6 +47,20 @@ def gather_rows_cuda(features: torch.Tensor, idx: torch.Tensor):
 gather_rows_cuda.launches = 0
 
 
+@torch.library.custom_op("ppt::gather_rows", mutates_args=())
+def _gather_rows_op(features: torch.Tensor,
+                    idx: torch.Tensor) -> torch.Tensor:
+    """K3 as one op for a traced program (kernels.dispatch.traced)."""
+    if features.is_cuda:
+        return gather_rows_cuda(features, idx)
+    return gather_rows_torch(features, idx)
+
+
+@_gather_rows_op.register_fake
+def _(features, idx):
+    return features.new_empty((*idx.shape, features.shape[-1]))
+
+
 def gather_rows(features: torch.Tensor, idx: torch.Tensor, tk: int = 2048,
                 impl: str = "auto"):
     """[B,N,C] features, [B,K] indices -> [B,K,C], exact.
@@ -54,7 +68,10 @@ def gather_rows(features: torch.Tensor, idx: torch.Tensor, tk: int = 2048,
     ``tk`` is the reference's tile of rows; the result does not depend on
     it, so it is accepted and changes nothing."""
     del tk  # every tiling gives the same rows
-    if dispatch.resolve(impl, features, "gather") == "cuda":
+    route = dispatch.resolve(impl, features, "gather")
+    if dispatch.traced(impl):
+        return _gather_rows_op(features.contiguous(), _build.int32(idx))
+    if route == "cuda":
         return gather_rows_cuda(features.contiguous(), _build.int32(idx))
     return gather_rows_torch(features, idx)
 

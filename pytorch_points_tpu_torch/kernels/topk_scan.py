@@ -101,6 +101,22 @@ def knn_cuda(query: torch.Tensor, support: torch.Tensor, k: int):
 knn_cuda.launches = 0
 
 
+@torch.library.custom_op("ppt::knn", mutates_args=())
+def _knn_op(query: torch.Tensor, support: torch.Tensor,
+            k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K8 as one op for a traced program (kernels.dispatch.traced)."""
+    if query.is_cuda:
+        return knn_cuda(query, support, k)
+    return knn_torch(query, support, k)
+
+
+@_knn_op.register_fake
+def _(query, support, k):
+    b, nq = query.shape[:2]
+    return (query.new_empty((b, nq, k)),
+            query.new_empty((b, nq, k), dtype=torch.int32))
+
+
 # ---------------------------------------------------------------------------
 # Morton-ring scan
 # ---------------------------------------------------------------------------
@@ -481,6 +497,9 @@ def knn(query: torch.Tensor, support: torch.Tensor, k: int,
         return ring(query, support, k, impl=impl)
     query = query.to(torch.float32)
     support = support.to(torch.float32)
-    if dispatch.resolve(impl, query, "knn") == "cuda":
+    route = dispatch.resolve(impl, query, "knn")
+    if dispatch.traced(impl):
+        return _knn_op(query.contiguous(), support.contiguous(), k)
+    if route == "cuda":
         return knn_cuda(query.contiguous(), support.contiguous(), k)
     return knn_torch(query, support, k)

@@ -24,6 +24,7 @@ from pytorch_points_tpu_torch.ops.sampling import (
     furthest_point_sample,
     furthest_point_sample_and_gather,
     gather_points,
+    random_sample,
     scatter_add,
 )
 
@@ -44,6 +45,7 @@ __all__ = [
     "knn_path",
     "nndistance",
     "pairwise_sqdist",
+    "random_sample",
     "sample_and_group",
     "scatter_add",
     "three_interpolate",

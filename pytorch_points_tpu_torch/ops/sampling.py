@@ -108,3 +108,24 @@ def scatter_add(target: torch.Tensor, idx: torch.Tensor,
     updates [B,K,C] at rows idx [B,K]; a new tensor, differentiable in
     ``target`` and ``updates``."""
     return _ScatterAdd.apply(target, idx.to(torch.int32), updates, impl)
+
+
+def random_sample(xyz: torch.Tensor, k: int, generator: torch.Generator,
+                  mask: torch.Tensor | None = None, impl: str = "auto"):
+    """Uniform random downsample without replacement: (sampled [B,k,C],
+    idx [B,k] int32). ``generator`` lives on ``xyz``'s device.
+
+    Without a mask each cloud's k indices are the first k of a uniform
+    random permutation; with one, a Gumbel top-k over logits that are
+    -inf on invalid points, as the reference draws (a cloud needs >= k
+    valid points for its indices to be valid and distinct).
+    """
+    b, n, _ = xyz.shape
+    u = torch.rand((b, n), generator=generator, device=xyz.device)
+    if mask is None:
+        idx = u.argsort(dim=1)[:, :k]
+    else:
+        gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
+        _, idx = torch.where(mask, gumbel, float("-inf")).topk(k, dim=1)
+    idx = idx.to(torch.int32)
+    return gather_points(xyz, idx, impl=impl), idx

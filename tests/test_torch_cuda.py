@@ -1365,3 +1365,99 @@ def test_repulsion_and_uniform_losses_cuda_match_plain(dev, masked):
     torch.testing.assert_close(out["cuda"][1], out["torch"][1], rtol=0,
                                atol=1e-4 * scale)
     assert torch.equal(out["cuda"][2], out["torch"][2])
+
+
+# ---------------------------------------------------------------------------
+# The host side on the card: config 10's trainer, export, augmentation
+# ---------------------------------------------------------------------------
+
+
+def _masked_chamfer_loss(m, batch, impl="auto"):
+    pred = m(batch["points"], batch["mask"], impl=impl)
+    return chamfer_distance(pred, batch["points"], p_mask=batch["mask"],
+                            q_mask=batch["mask"], impl=impl)
+
+
+def test_trainer_step_cuda_matches_plain(dev, tmp_path):
+    """Config 10's path at a small size: PLY files -> BucketedBatcher ->
+    Prefetcher -> Trainer on the card; the first step's loss and grads on
+    the kernels against the plain versions (loss rtol 1e-5, grads 1e-4 of
+    each tensor's largest), then three steps with finite losses."""
+    from pytorch_points_tpu_torch.data import BucketedBatcher, PlyFolderDataset
+    from pytorch_points_tpu_torch.utils import Trainer
+    from torch_inputs import write_ply_clouds
+
+    ds = PlyFolderDataset(write_ply_clouds(tmp_path / "ply"))
+    batcher = BucketedBatcher(ds, 2, multiple=128, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b in batcher]
+    model = PointCloudAutoencoder(npoint1=32, npoint2=8, device=dev)
+    first = {}
+    for impl in ("cuda", "torch"):
+        model.zero_grad(set_to_none=True)
+        loss = _masked_chamfer_loss(model, batches[0], impl)
+        loss.backward()
+        first[impl] = (loss.item(), [p.grad.clone()
+                                     for p in model.parameters()])
+    torch.testing.assert_close(first["cuda"][0], first["torch"][0],
+                               rtol=1e-5, atol=0)
+    for got, ref in zip(first["cuda"][1], first["torch"][1]):
+        scale = ref.abs().max().item()
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * scale)
+    losses = []
+    tr = Trainer(model, torch.optim.Adam(model.parameters(), 1e-3),
+                 _masked_chamfer_loss, ckpt_dir=str(tmp_path / "ckpt"),
+                 log_every=1)
+    tr.fit(iter(batches), steps=3, on_log=lambda s, v: losses.append(v))
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    assert (tmp_path / "ckpt" / "3").is_dir()
+
+
+def test_export_forward_cuda_roundtrip(dev, tmp_path):
+    """export_forward on the card records the kernels as ppt:: ops; the
+    loaded program launches them and equals the eager forward bitwise."""
+    from pytorch_points_tpu_torch.utils import export_forward, load_exported
+
+    xyz, _ = autoencoder_inputs(masked=False, b=2, n=256)
+    (x,) = _on(dev, xyz)
+    model = PointCloudAutoencoder(npoint1=64, npoint2=16, device=dev).eval()
+    with torch.no_grad():
+        export_forward(model, x, path=str(tmp_path / "ae.pt2"))
+        program = load_exported(str(tmp_path / "ae.pt2"))
+        wrappers = (fps.fps_cuda, ballquery.ball_query_cuda,
+                    gather.gather_rows_cuda, topk_scan.knn_cuda)
+        before = [w.launches for w in wrappers]
+        got = program(x)
+        assert all(w.launches > n for w, n in zip(wrappers, before))
+        assert torch.equal(got, model(x))
+
+
+def test_augment_with_a_cuda_generator(dev):
+    """Augmentation and random_sample draw on the card from a CUDA
+    generator: the same seed gives the same draw, padding is untouched,
+    and a CPU generator cannot drive a CUDA tensor."""
+    from pytorch_points_tpu_torch.data import augment
+    from pytorch_points_tpu_torch.ops import random_sample
+
+    (x,) = _on(dev, cloud(np.random.default_rng(3), 4, 256))
+    mask = (torch.arange(256, device=dev)[None] < 200).expand(4, 256)
+
+    def gen(seed=0):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    for fn in (lambda g: augment.jitter(g, x, mask=mask),
+               lambda g: augment.rotate(g, x, mask=mask),
+               lambda g: augment.random_scale(g, x, mask=mask),
+               lambda g: augment.random_dropout(g, x, 0.9, mask=mask)[1],
+               lambda g: random_sample(x, 64, g, mask=mask)[0]):
+        out = fn(gen())
+        assert out.is_cuda and torch.equal(out, fn(gen()))
+        if out.shape == x.shape:
+            assert torch.equal(out[~mask], x[~mask])
+    r = augment.rotate(gen(), x)
+    torch.testing.assert_close(r.norm(dim=-1), x.norm(dim=-1), rtol=1e-5,
+                               atol=1e-6)
+    _, keep = augment.random_dropout(gen(), x, 1.0, mask=mask)
+    assert keep.any(dim=1).all() and not (keep & ~mask).any()
+    with pytest.raises(RuntimeError):
+        augment.jitter(torch.Generator().manual_seed(0), x)

@@ -159,3 +159,19 @@ def nn_inputs(kind, n, m, b=2):
             x[..., 0] = np.where(
                 bad, sign * (big + 4.0 * np.arange(x.shape[1])), x[..., 0])
     return p, q
+
+
+def write_ply_clouds(root, count=8, lo=96, hi=128, seed=5):
+    """``count`` binary PLY clouds of ``lo`` to ``hi`` points (uniform in
+    [-1, 1]^3) under ``root``, written by the port's ``save_ply``; returns
+    ``root``."""
+    import os
+
+    from pytorch_points_tpu_torch.utils import pc_utils
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    for i, n in enumerate(rng.integers(lo, hi + 1, count)):
+        pc_utils.save_ply(rng.uniform(-1, 1, (int(n), 3)).astype(np.float32),
+                          os.path.join(root, f"cloud_{i:03d}.ply"))
+    return str(root)
