@@ -170,11 +170,49 @@ Phases, in order; any failure raises and exits non-zero:
    on the card: equal to the eager forward bitwise, with the kernels'
    launch counts rising during the loaded program's call.
 
-Phases 3-15 are the main paths. Each sets every kernel's launch count to 0
+16. config 3s (bench.py:149-161): ``sample_and_group_sorted(x, None, 2048,
+   32, 0.2)`` at B=16 N=16384 (FPS seeded on the Morton-sorted cloud, the
+   ball query on the original order): all five outputs bitwise equal to
+   the plain versions', the centroid sets equal to ``sample_and_group``'s
+   per cloud and the neighbourhood sets equal in every ball of <= 32
+   points; median of 10 beside config 3 (``sample_and_group``);
+17. config 5b (bench.py:248-270): the autoencoder under the bf16 policy
+   (``dtype=torch.bfloat16``) trained at B=16 N=2048 on Chamfer + 0.1 EMD
+   (pop cap 384), Adam 1e-3; the first step's grads within BF16_GRAD_TOL
+   of the plain versions' run with ascending sums (K4's order), the
+   spread the atomic sums' order causes printed beside; the gather's bf16
+   instance must launch; median of 10 steps beside phase 4's float32
+   config 5;
+18. remat and BatchNorm: the autoencoder with ``remat=True`` (each SA/FP
+   stage checkpointed) and through ``Trainer(remat=True)`` (the whole loss),
+   first-step grads within TRAIN_GRAD_TOL of ``remat=False``'s; the peak
+   device memory and step time with and without remat at B=32 N=16384 on
+   Chamfer alone; ``norm="batch"`` trained 10 steps, its first step's
+   grads and running statistics held to the plain versions' run with
+   ascending sums (a bias before a BatchNorm has a grad that cancels to
+   rounding noise, which the atomic sums' order moves), its eval
+   forward within 1e-5 of plain; one remat step under BatchNorm leaves the
+   running statistics of one plain step, bitwise;
+19. Neural Cages: ``CageDeformer(42)`` at its defaults (npoint 256/64) with
+   the icosphere cage of radius 1.5, B=8 N=2048, trained on ChamferLoss +
+   MeshLaplacianLoss + PointLaplacianLoss with Adam 1e-3: first step held
+   to plain, losses finite, median of 10 steps;
+20. DSS and geometry: ``batch_normals(x, 20)`` at B=4 N=2048 bitwise equal
+   to plain; ``render_points`` at 128 x 128, EWA splats from those normals
+   and isotropic splats, forward and backward to the points and normals,
+   within RENDER_TOL of the same call on the CPU; NormalLoss,
+   PointEdgeLengthLoss and MeshEdgeLengthLoss equal to their plain
+   versions; SmapeLoss, the two normalisations and
+   ``voxel_downsample_mask`` equal to the CPU's within 1e-6.
+
+Phase 2 also holds the gather's bf16 instance bitwise to its plain version
+at the bf16 paths' shapes (SA2's group, the FP stages' gathers).
+
+Phases 3-20 are the main paths. Each sets every kernel's launch count to 0
 just before each of its runs and reads them just after, and fails if a
 kernel of that run's path was never launched.
 
-16. profile: one call of each main path, traced with torch.profiler after
+21. profile: one call of each main path, traced with torch.profiler after
    its untraced timing: wall ms, device busy ms and idle share per call,
    the largest device items and the port's kernels among the rest; for
    config 6 and 6m also the glue around the ring kernels (its device items
@@ -182,7 +220,7 @@ kernel of that run's path was never launched.
    nothing; its launches are not counted.
 
 TF32 is switched off for matmuls and cuDNN so the port computes in float32
-as the JAX reference does. The script imports no JAX. Without a CUDA device,
+as the JAX reference does, and bf16 matmuls reduce in float32. The script imports no JAX. Without a CUDA device,
 or outside a checkout, it exits non-zero and prints no result. Its last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -254,10 +292,31 @@ CLASSIFIER_CLASSES = 40
 CONFIG10 = dict(count=32, batch=4, multiple=128, max_buckets=2, npoint1=96,
                 npoint2=24, epochs=4, depth=2, traced_epochs=2)
 AUCTION_PHASES = 9  # past the 8 phases one K11 launch holds
-SPLIT_KERNELS = ("gather", "scatter", "knn", "nn_dense")  # device-only
+SPLIT_KERNELS = ("gather", "gather_bf16", "scatter", "knn",
+                 "nn_dense")  # device-only
 SMS, LANES_PER_SM = 132, 4 * 32  # H100 SXM: 4 schedulers of 32 lanes an SM
 DENSE_ODD = dict(b=4, n=5000, m=3001)  # K5 on ragged clouds
 DEVICE_CALLS = 5  # calls traced for a device-only time
+# config 3s (bench.py:149-161): sample_and_group_sorted(x, None, 2048, 32,
+# 0.2) at B=16 N=16384, beside config 3's sample_and_group
+CONFIG3S = dict(b=16, n=16384, p=2048)
+SORTED_CALLS = 10
+# config 5b (bench.py:248-270): config 5 under the bf16 policy. Its first
+# step's grads are held to the plain versions' run with ascending sums
+# (torch.use_deterministic_algorithms: index_add_ then sums each row in
+# ascending k, K4's order) within one bf16 rounding of each tensor's scale,
+# 2^-8; the spread that the summation order alone causes after the bf16
+# rounding (the plain versions with atomic sums against ascending ones) is
+# measured and printed beside it.
+BF16_GRAD_TOL = 2.0**-8
+REMAT = dict(b=32, n=16384)  # remat's memory point: Chamfer alone, K6
+REMAT_CALLS = 3
+STAT_TOL = 1e-6  # BatchNorm's running statistics, of their scale
+# the Neural Cages step (examples/deform_with_cage.py; models/cage_deformer)
+CAGES = dict(b=8, n=2048, subdivisions=1, radius=1.5)
+DSS = dict(b=4, n=2048, k=20, image=128)
+RENDER_TOL = 1e-5  # the card against the CPU, of each tensor's scale
+MEASURED = {}  # numbers one phase prints beside another's
 
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "fps": ("pytorch_points_tpu_torch/csrc/fps.cu",
@@ -270,6 +329,9 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "gather": ("pytorch_points_tpu_torch/csrc/gather.cu",
                "pytorch_points_tpu/kernels/gather.py:84 and "
                "pytorch_points_tpu/kernels/gather.py:32"),
+    "gather_bf16": ("pytorch_points_tpu_torch/csrc/gather.cu",
+                    "pytorch_points_tpu/kernels/gather.py:84 and "
+                    "pytorch_points_tpu/kernels/gather.py:32, bf16 rows"),
     "knn": ("pytorch_points_tpu_torch/csrc/knn.cu",
             "pytorch_points_tpu/kernels/topk_scan.py:71"),
     "scatter": ("pytorch_points_tpu_torch/csrc/scatter.cu",
@@ -782,6 +844,47 @@ def kernel_cases(torch, rng, dev):
         "knn", f"config 7 xyz graph B{cb} Nq=Ns={cn} k={ck}",
         lambda impl: topk_scan.knn(ux, ux, ck, impl=impl), [ux],
         DIST_FLOPS * cb * cn * cn, issue=DIST_FLOPS * cb * cn * cn))
+    return cases
+
+
+def bf16_gather_cases(torch, dev):
+    """K3's bf16 instance at the shapes the bf16 paths give it: SA2's group
+    of SA1's bf16 features, and the FP stages' gathers of bf16 features
+    (fp2 and fp1, three neighbours a point), on a serve cloud's own
+    indices. Bitwise equal to the plain version; the bound counts 2 bytes
+    an element."""
+    from pytorch_points_tpu_torch.kernels import ballquery, fps, gather
+    from pytorch_points_tpu_torch.ops import three_nn
+
+    rng = np.random.default_rng(SEED + 30)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    b, n = SLICE["b"], SLICE["n"]
+    xyz = t(cloud(rng, b, n))
+    xyz1 = fps.furthest_point_sample(xyz, NPOINT1, emit_coords=True,
+                                     impl="torch")[1]
+    xyz2 = fps.furthest_point_sample(xyz1, NPOINT2, emit_coords=True,
+                                     impl="torch")[1]
+    idx2 = ballquery.ball_query(xyz1, xyz2, RADIUS2, NSAMPLE,
+                                impl="torch")[0].reshape(b, -1)
+    fp2_idx = three_nn(xyz1, xyz2, impl="torch")[1].reshape(b, -1)
+    fp1_idx = three_nn(xyz, xyz1, impl="torch")[1].reshape(b, -1)
+    cases = []
+    for label, m, c, idx in (
+            (f"sa2 bf16 features B{b} K={idx2.shape[1]} C=128", NPOINT1,
+             128, idx2),
+            (f"fp2 bf16 features B{b} K={fp2_idx.shape[1]} C=256", NPOINT2,
+             256, fp2_idx),
+            (f"fp1 bf16 features B{b} K={fp1_idx.shape[1]} C=128", NPOINT1,
+             128, fp1_idx)):
+        f = t(rng.standard_normal((b, m, c)).astype(np.float32)).to(
+            torch.bfloat16)
+        cases.append(Case(
+            "gather_bf16", label,
+            lambda impl, f=f, i=idx: gather.gather_rows(f, i, impl=impl),
+            [f, idx], library=gather_call(torch, f, idx)))
     return cases
 
 
@@ -1649,6 +1752,7 @@ def phase_kernels(torch, dev):
         cases += ring_kernel_cases(torch, dev)
         cases += band_dynamic_cases(torch, dev)
         cases += worklist_kernel_cases(torch, dev)
+        cases += bf16_gather_cases(torch, dev)
         for case in cases:
             hold_against_plain(torch, case, stats)
         check_emd_kernels(torch, dev, stats)
@@ -1837,6 +1941,7 @@ def phase_train(torch, dev, wrappers):
             lambda step=step: step(batches[0]).item())
     print("train step medians: " + "; ".join(
         f"{label} {ms!r} ms" for label, ms in medians.items()))
+    MEASURED["config 5 f32 step ms"] = medians[runs[1][0]]
     return launches, calls
 
 
@@ -2740,6 +2845,540 @@ def config10_run(torch, dev, wrappers, work):
             lambda: trainer.step_fn(fixed).item()}
 
 
+def lexsort_rows(torch, x):
+    """[B,P,3] -> [B,P] int64: each cloud's rows in (x, y, z) order."""
+    order = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+    for d in (2, 1, 0):  # least significant key first, stable sorts
+        key = x[..., d].gather(1, order)
+        order = order.gather(1, torch.sort(key, dim=1, stable=True).indices)
+    return order
+
+
+def ball_counts(torch, centers, xyz, radius, chunk=256):
+    """[B,P,3], [B,N,3] -> [B,P] uncapped counts of the points strictly
+    within ``radius`` of each centre, in the ball query's diff^2 form,
+    ``chunk`` centres at a time."""
+    out = []
+    r2 = np.float32(radius) * np.float32(radius)
+    for s in range(0, centers.shape[1], chunk):
+        d = centers[:, s:s + chunk, None, :] - xyz[:, None, :, :]
+        d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[
+            ..., 2]
+        out.append((d2 < float(r2)).sum(-1))
+    return torch.cat(out, dim=1)
+
+
+def phase_sorted(torch, dev, wrappers):
+    """Config 3s: the Morton-consistent SA front half at B=16 N=16384,
+    held bitwise to its plain versions and, as a set, to
+    ``sample_and_group``'s; timed beside config 3."""
+    from pytorch_points_tpu_torch.ops import (
+        ball_query,
+        sample_and_group,
+        sample_and_group_sorted,
+    )
+
+    b, n, p = CONFIG3S["b"], CONFIG3S["n"], CONFIG3S["p"]
+    print(f"== phase 16: config 3s, sample_and_group_sorted(x, None, {p}, "
+          f"{NSAMPLE}, {RADIUS1}) at B={b} N={n}, beside config 3's "
+          "sample_and_group")
+    rng = np.random.default_rng(SEED + 31)
+    x = torch.from_numpy(cloud(rng, b, n)).to(dev)
+
+    def sorted_call(impl="auto"):
+        return sample_and_group_sorted(x, None, p, NSAMPLE, RADIUS1,
+                                       impl=impl)
+
+    with torch.inference_mode():
+        sorted_call()  # warm-up, uncounted
+        out = {}
+
+        def run():
+            out["cuda"] = sorted_call()
+            torch.cuda.synchronize()
+
+        launches = drive(wrappers, ("fps", "ball_query", "gather"),
+                         "config 3s", run)
+        got, ref = out["cuda"], sorted_call("torch")
+        names = ("new_xyz", "new_features", "idx", "grouped_xyz", "perm")
+        for name, g, r in zip(names, got, ref, strict=True):
+            if g.dtype != r.dtype or not torch.equal(g, r):
+                fail(f"config 3s: {name} differs from the plain versions")
+        cs, _, idx, _, perm = got
+        new_xyz, _, idx0, _ = sample_and_group(x, None, p, NSAMPLE, RADIUS1)
+        # centroid sets: both pipelines emit the same points' coordinates
+        o_s, o_0 = lexsort_rows(torch, cs), lexsort_rows(torch, new_xyz)
+        c_s = cs.gather(1, o_s[..., None].expand(-1, -1, 3))
+        c_0 = new_xyz.gather(1, o_0[..., None].expand(-1, -1, 3))
+        if not torch.equal(c_s, c_0):
+            fail("config 3s: the centroid sets differ from "
+                 "sample_and_group's")
+        # neighbourhoods of balls of <= NSAMPLE points: idx (into the sorted
+        # cloud) back to original indices, then row sets compared
+        orig = perm.long().gather(1, idx.reshape(b, -1).long()).reshape(
+            idx.shape)
+        rows_s = torch.sort(orig.gather(1, o_s[..., None].expand(
+            -1, -1, NSAMPLE)), dim=-1).values
+        rows_0 = torch.sort(idx0.long().gather(1, o_0[..., None].expand(
+            -1, -1, NSAMPLE)), dim=-1).values
+        inside = ball_counts(torch, c_s, x, RADIUS1)
+        small = inside <= NSAMPLE
+        same = (rows_s == rows_0).all(-1)
+        if not same[small].all():
+            fail("config 3s: a ball of <= 32 points holds another "
+                 "neighbourhood set than sample_and_group's")
+        print(f"config 3s: all five outputs bitwise equal to the plain "
+              f"versions; centroid sets equal to sample_and_group's in "
+              f"every cloud; neighbourhood sets equal in all "
+              f"{int(small.sum())} balls of <= {NSAMPLE} points, and in "
+              f"{int(same[~small].sum())} of the {int((~small).sum())} "
+              "saturated ones")
+        ms_sorted = median_ms(torch, sorted_call, SORTED_CALLS)
+        ms_plain = median_ms(torch, lambda: sample_and_group(
+            x, None, p, NSAMPLE, RADIUS1), SORTED_CALLS)
+        ms_bq = median_ms(torch, lambda: ball_query(x, cs, RADIUS1, NSAMPLE),
+                          SORTED_CALLS)
+    print(f"config 3s median {ms_sorted!r} ms, config 3 (sample_and_group) "
+          f"{ms_plain!r} ms over {SORTED_CALLS} calls each; its ball query "
+          f"alone {ms_bq!r} ms")
+    return [launches], {
+        f"config 3s sample_and_group_sorted B={b} N={n}": sorted_call,
+        f"config 3 sample_and_group B={b} N={n}": lambda: sample_and_group(
+            x, None, p, NSAMPLE, RADIUS1)}
+
+
+def ordered_first_step_gate(torch, model, loss_of, what, tol):
+    """The first step on three routes: the kernels; the plain versions with
+    ascending sums (deterministic algorithms: ``index_add_`` sums each row
+    in ascending k, K4's order); the plain versions with atomic sums. The
+    model's buffers (BatchNorm's running statistics) are restored before
+    each route's forward. The loss must agree within 1e-6 relative and the
+    kernels' grads lie within ``tol`` of the ascending plain grads, each of
+    its tensor's largest; the atomic route's distance from the ascending
+    one, the spread the summation order causes, is printed beside. Where
+    the order alone moves a grad by more than ``tol`` (under bf16
+    rounding, or in a grad that cancels to rounding noise, as a bias
+    before a BatchNorm), only this gate holds the kernels to the plain
+    versions. Returns {route: (loss, grads, buffers after the forward)}."""
+    import warnings
+
+    routes = {}
+    start = [t.clone() for t in model.buffers()]
+    for label, impl, ascending in (("kernels", "cuda", False),
+                                   ("ascending", "torch", True),
+                                   ("atomic", "torch", False)):
+        with torch.no_grad():
+            for t, s in zip(model.buffers(), start):
+                t.copy_(s)
+        model.zero_grad(set_to_none=True)
+        before = torch.are_deterministic_algorithms_enabled()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.use_deterministic_algorithms(ascending, warn_only=True)
+            try:
+                loss = loss_of(impl)
+                loss.backward()
+            finally:
+                torch.use_deterministic_algorithms(before)
+        routes[label] = (loss.item(), [p.grad.detach().clone()
+                                       for p in model.parameters()],
+                         [t.clone() for t in model.buffers()])
+    model.zero_grad(set_to_none=True)
+    gap = grad_gap(routes["kernels"][1], routes["ascending"][1])
+    spread = grad_gap(routes["atomic"][1], routes["ascending"][1])
+    losses = {k: v[0] for k, v in routes.items()}
+    print(f"{what} first step: losses {losses}; parameter grads max "
+          f"|kernels - plain (ascending sums)| / max |plain| = {gap!r} (bar "
+          f"{tol}); the summation order's spread, max |plain (atomic sums) "
+          f"- plain (ascending)| / max = {spread!r}")
+    if (not np.isfinite(losses["kernels"]) or gap > tol
+            or abs(losses["kernels"] - losses["ascending"])
+            > 1e-6 * abs(losses["ascending"])):
+        fail(f"{what}: first-step loss or grads differ from the plain "
+             "versions")
+    return routes
+
+
+def phase_config5b(torch, dev, wrappers):
+    """Config 5b: config 5 (Chamfer + 0.1 EMD, pop cap 384, Adam 1e-3) on
+    the autoencoder under the bf16 policy: bf16 features through the
+    gather's bf16 instance."""
+    from pytorch_points_tpu_torch.models import PointCloudAutoencoder
+    from pytorch_points_tpu_torch.parallel import (
+        make_train_step,
+        reconstruction_loss,
+    )
+
+    b, n = SLICE["b"], SLICE["n"]
+    print(f"== phase 17: config 5b, PointCloudAutoencoder(dtype=bfloat16) "
+          f"trained at B={b} N={n} on Chamfer + 0.1 EMD (pop cap 384), Adam "
+          "lr 1e-3")
+    rng = np.random.default_rng(SEED + 2)  # phase 4's batches
+    batches = [{"points": torch.from_numpy(cloud(rng, b, n)).to(dev)}
+               for _ in range(TRAIN_STEPS)]
+    gen = torch.Generator().manual_seed(SEED)
+    model = PointCloudAutoencoder(NPOINT1, NPOINT2, dtype=torch.bfloat16,
+                                  device=dev, generator=gen)
+    with torch.inference_mode():
+        pred = model(batches[0]["points"])
+    print(f"prediction dtype {pred.dtype} (the residual promotes the bf16 "
+          f"offsets); parameters {model.head.layers[0].weight.dtype}")
+    loss_fn = reconstruction_loss(emd_kwargs=CONFIG5_EMD)
+    ordered_first_step_gate(torch, model, lambda impl: reconstruction_loss(
+        impl=impl, emd_kwargs=CONFIG5_EMD)(model, batches[0]), "config 5b",
+        BF16_GRAD_TOL)
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), 1e-3),
+                           loss_fn)
+    counts, median = train_run(
+        torch, dev, wrappers, (*TRAIN_KERNELS, *EMD_KERNELS, "gather_bf16"),
+        "config 5b", step, batches)
+    print(f"config 5b median {median!r} ms/step; config 5 in float32 "
+          f"(phase 4) {MEASURED.get('config 5 f32 step ms')!r} ms/step")
+    return [counts], {f"train step, config 5b (bf16), B={b} N={n}":
+                      lambda: step(batches[0]).item()}
+
+
+def peak_and_ms(torch, dev, step, batch):
+    """(peak device bytes during one step after a warm-up step, median ms
+    of REMAT_CALLS steps)."""
+    step(batch).item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step(batch).item()
+    peak = torch.cuda.max_memory_allocated(dev)
+    return peak, median_ms(torch, lambda: step(batch).item(), REMAT_CALLS)
+
+
+def phase_remat_bn(torch, dev, wrappers):
+    """Remat and BatchNorm: (a) the autoencoder with remat=True and through
+    Trainer(remat=True), grads held to remat=False; its peak memory and
+    step time both ways at B=32 N=16384 on Chamfer alone; (b) norm="batch"
+    trained 10 steps, its first step's grads and running statistics held to
+    the plain versions', served in eval mode; (c) a remat step under
+    BatchNorm leaves the running statistics of one plain step."""
+    from pytorch_points_tpu_torch.models import PointCloudAutoencoder
+    from pytorch_points_tpu_torch.parallel import (
+        make_train_step,
+        reconstruction_loss,
+    )
+    from pytorch_points_tpu_torch.utils import Trainer
+
+    b, n = SLICE["b"], SLICE["n"]
+    print(f"== phase 18: remat and BatchNorm on the autoencoder, B={b} "
+          f"N={n}; remat's memory at B={REMAT['b']} N={REMAT['n']}")
+    rng = np.random.default_rng(SEED + 32)
+    batches = [{"points": torch.from_numpy(cloud(rng, b, n)).to(dev)}
+               for _ in range(TRAIN_STEPS)]
+    chamfer = reconstruction_loss(emd_weight=0)
+
+    def model_of(**kw):
+        return PointCloudAutoencoder(
+            NPOINT1, NPOINT2, device=dev,
+            generator=torch.Generator().manual_seed(SEED), **kw)
+
+    def grads_of(model, step):
+        step(batches[0])
+        return [p.grad.detach().clone() for p in model.parameters()]
+
+    print("-- (a) remat")
+    plain = model_of()
+    ref = grads_of(plain, make_train_step(
+        plain, torch.optim.SGD(plain.parameters(), 0.0), chamfer))
+    staged = model_of(remat=True)
+    got = grads_of(staged, make_train_step(
+        staged, torch.optim.SGD(staged.parameters(), 0.0), chamfer))
+    whole = model_of()
+    trainer = Trainer(whole, torch.optim.Adam(whole.parameters(), 1e-3),
+                      chamfer, log_every=10**9, remat=True)
+    got_whole = grads_of(whole, trainer.step_fn)
+    gaps = (grad_gap(got, ref), grad_gap(got_whole, ref))
+    print(f"remat first-step grads max |remat - plain| / max |plain|: each "
+          f"SA/FP stage checkpointed {gaps[0]!r}, Trainer(remat=True) (the "
+          f"whole loss) {gaps[1]!r} (bar {TRAIN_GRAD_TOL})")
+    if max(gaps) > TRAIN_GRAD_TOL:
+        fail("remat: first-step grads differ from remat=False")
+    launches = []
+
+    def remat_steps():
+        trainer.fit(batches, prefetch=None)
+
+    launches.append(drive(wrappers, TRAIN_KERNELS, "remat, Trainer(remat="
+                          "True), chamfer", remat_steps))
+    rb, rn = REMAT["b"], REMAT["n"]
+    big = {"points": torch.from_numpy(cloud(rng, rb, rn)).to(dev)}
+    memory = {}
+    for remat in (False, True):
+        model = model_of(remat=remat)
+        step = make_train_step(model, torch.optim.Adam(model.parameters(),
+                                                       1e-3), chamfer)
+        if remat:
+            def big_steps():
+                memory[remat] = peak_and_ms(torch, dev, step, big)
+
+            launches.append(drive(wrappers, (*HEAD_KERNELS, "knn"),
+                                  f"remat, chamfer at B={rb} N={rn}",
+                                  big_steps))
+        else:
+            memory[remat] = peak_and_ms(torch, dev, step, big)
+        del model, step
+    print(f"remat at B={rb} N={rn}, Chamfer alone: peak device memory "
+          f"{memory[False][0]} bytes without, {memory[True][0]} bytes with "
+          f"({memory[True][0] / memory[False][0]!r} of it); step "
+          f"{memory[False][1]!r} ms without, {memory[True][1]!r} ms with")
+
+    print("-- (b) norm=\"batch\"")
+    model = model_of(norm="batch")
+    first = ordered_first_step_gate(
+        torch, model, lambda impl: reconstruction_loss(
+            emd_weight=0, impl=impl)(model, batches[0]), "BatchNorm",
+        TRAIN_GRAD_TOL)
+    stat_gap = max(((g - r).abs().max() / r.abs().max().clamp_min(1e-30)
+                    ).item() for g, r in zip(first["kernels"][2],
+                                             first["ascending"][2]))
+    print(f"BatchNorm first step: running statistics max |kernels - plain| "
+          f"/ max |plain| = {stat_gap!r} (bar {STAT_TOL}) over "
+          f"{len(first['kernels'][2])} buffers")
+    if stat_gap > STAT_TOL:
+        fail("BatchNorm: running statistics differ from the plain versions")
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), 1e-3),
+                           chamfer)
+    counts, bn_median = train_run(torch, dev, wrappers, TRAIN_KERNELS,
+                                  "BatchNorm", step, batches)
+    launches.append(counts)
+    model.eval()
+    with torch.inference_mode():
+        x = batches[0]["points"]
+        out = {}
+
+        def serve():
+            out["y"] = model(x).cpu()
+
+        launches.append(drive(wrappers, SERVE_KERNELS, "BatchNorm serve "
+                              "(eval)", serve))
+        err = (out["y"] - model(x, impl="torch").cpu()).abs().max().item()
+    print(f"BatchNorm eval serve: max |kernels - plain| = {err!r} (bar "
+          f"{SERVE_TOL}); train median {bn_median!r} ms/step")
+    if not torch.isfinite(out["y"]).all() or err > SERVE_TOL:
+        fail("BatchNorm eval serve differs from the plain versions")
+
+    print("-- (c) remat under BatchNorm")
+    stats = []
+    for remat in (False, True):
+        m = model_of(norm="batch", remat=remat)
+        make_train_step(m, torch.optim.SGD(m.parameters(), 0.0), chamfer)(
+            batches[0]).item()
+        stats.append([t.clone() for t in m.buffers()])
+    same = all(torch.equal(a, r) for a, r in zip(*stats))
+    print(f"one remat step's running statistics equal to one plain step's "
+          f"(bitwise): {same}")
+    if not same:
+        fail("remat + BatchNorm: the recompute moved the running statistics")
+    return launches, {
+        f"train step, BatchNorm, B={b} N={n}": lambda: step(
+            batches[0]).item()}
+
+
+def cage_clouds(torch, dev, rng, b, n):
+    """(source, target) [B,N,3]: points in the unit ball and their images
+    squashed along y, inside the cage of radius 1.5."""
+    src = rng.standard_normal((b, n, 3))
+    src *= rng.uniform(0, 1, (b, n, 1)) ** (1 / 3) / np.linalg.norm(
+        src, axis=-1, keepdims=True)
+    tgt = src * np.array([1.0, 0.6, 1.0])
+    return (torch.from_numpy(src.astype(np.float32)).to(dev),
+            torch.from_numpy(tgt.astype(np.float32)).to(dev))
+
+
+def phase_cages(torch, dev, wrappers):
+    """The Neural Cages step: CageDeformer at its defaults deforms a
+    source toward a target through the icosphere cage; Chamfer to the
+    target + the cage's uniform Laplacian against the source cage's + the
+    point Laplacian under the source's neighbourhoods, Adam 1e-3."""
+    from pytorch_points_tpu_torch.losses import (
+        ChamferLoss,
+        MeshLaplacianLoss,
+        PointLaplacianLoss,
+    )
+    from pytorch_points_tpu_torch.models import CageDeformer
+    from pytorch_points_tpu_torch.parallel import make_train_step
+    from pytorch_points_tpu_torch.utils import geometry_utils
+
+    cfg = CAGES
+    cv, cf = geometry_utils.generate_icosphere(cfg["subdivisions"],
+                                               radius=cfg["radius"])
+    edges = geometry_utils.mesh_edges(cf)
+    b, n = cfg["b"], cfg["n"]
+    print(f"== phase 19: Neural Cages, CageDeformer({len(cv)}) at its "
+          f"defaults, cage generate_icosphere({cfg['subdivisions']}, radius="
+          f"{cfg['radius']}), B={b} N={n}: ChamferLoss + MeshLaplacianLoss + "
+          "PointLaplacianLoss, Adam lr 1e-3")
+    rng = np.random.default_rng(SEED + 33)
+    batches = [dict(zip(("source", "target"), cage_clouds(
+        torch, dev, rng, b, n))) for _ in range(TRAIN_STEPS)]
+    gen = torch.Generator().manual_seed(SEED)
+    model = CageDeformer(len(cv), device=dev, generator=gen)
+    cage = torch.from_numpy(cv).to(dev)
+    terms = {}
+
+    def loss_fn(m, batch, impl="auto"):
+        deformed, new_cage, _ = m(batch["source"], batch["target"], cv, cf,
+                                  impl=impl)
+        terms["chamfer"] = ChamferLoss(impl=impl)(deformed, batch["target"])
+        terms["cage"] = MeshLaplacianLoss(impl=impl)(
+            new_cage, edges, cage.expand_as(new_cage))
+        terms["points"] = PointLaplacianLoss(impl=impl)(batch["source"],
+                                                        deformed)
+        return terms["chamfer"] + terms["cage"] + terms["points"]
+
+    print(f"model: {sum(p.numel() for p in model.parameters())} parameters")
+    first_step_gate(torch, model, lambda impl: loss_fn(model, batches[0],
+                                                       impl), "Neural Cages")
+    values = {k: v.item() for k, v in terms.items()}
+    print(f"first step terms (plain): {values}")
+    if not all(np.isfinite(v) for v in values.values()):
+        fail(f"Neural Cages: non-finite loss terms {values}")
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), 1e-3),
+                           loss_fn)
+    counts, median = train_run(
+        torch, dev, wrappers, ("fps", "ball_query", "gather", "scatter",
+                               "nn_dense", "knn"), "Neural Cages", step,
+        batches)
+    print(f"Neural Cages median {median!r} ms/step")
+    return [counts], {f"train step, Neural Cages, B={b} N={n}":
+                      lambda: step(batches[0]).item()}
+
+
+def phase_dss(torch, dev, wrappers):
+    """DSS and the geometry: batch_normals (K8, K3) equal to its plain
+    versions; render_points with EWA splats from those normals and with
+    isotropic splats, forward and backward, within RENDER_TOL of the same
+    call on the CPU; the geometry losses and ops on the same clouds, held
+    to the plain versions (the CPU where an op has no kernel)."""
+    from pytorch_points_tpu_torch import geo
+    from pytorch_points_tpu_torch.losses import (
+        MeshEdgeLengthLoss,
+        NormalLoss,
+        PointEdgeLengthLoss,
+        SmapeLoss,
+    )
+    from pytorch_points_tpu_torch.ops import (
+        batch_normals,
+        normalize_point_batch,
+        normalize_to_box,
+        voxel_downsample_mask,
+    )
+    from pytorch_points_tpu_torch.utils import geometry_utils
+
+    b, n, k, size = DSS["b"], DSS["n"], DSS["k"], DSS["image"]
+    print(f"== phase 20: DSS and geometry, batch_normals(x, {k}) and "
+          f"render_points at {size}x{size} on B={b} N={n} clouds; the "
+          "geometry losses and ops")
+    rng = np.random.default_rng(SEED + 34)
+    x = rng.standard_normal((b, n, 3))
+    x = (0.6 * x / np.linalg.norm(x, axis=-1, keepdims=True)
+         * (1 + 0.02 * rng.standard_normal((b, n, 1)))).astype(np.float32)
+    x = torch.from_numpy(x).to(dev)
+    launches, out = [], {}
+    with torch.inference_mode():
+        def normals():
+            out["n"] = batch_normals(x, k)
+            torch.cuda.synchronize()
+
+        launches.append(drive(wrappers, ("knn", "gather"),
+                              "DSS batch_normals", normals))
+        nrm = out["n"]
+        if not torch.equal(nrm, batch_normals(x, k, impl="torch")):
+            fail("batch_normals differs from the plain versions")
+        print(f"batch_normals: {tuple(nrm.shape)}, equal to the plain "
+              "versions bitwise")
+    nrm = nrm.clone()  # a normal tensor: autograd may use it below
+    camera = geo.Camera(eye=(1.5, 1.0, 2.5), focal=1.8)
+    colors = torch.from_numpy(rng.uniform(0, 1, (b, n, 3)).astype(
+        np.float32)).to(dev)
+    w = torch.from_numpy(rng.standard_normal((b, size, size, 3)).astype(
+        np.float32)).to(dev)
+
+    def render(device, ewa):
+        xs = x.detach().to(device).requires_grad_(True)
+        ns = nrm.detach().to(device).requires_grad_(True)
+        img, alpha = geo.render_points(
+            xs, colors.to(device), normals=ns if ewa else None,
+            camera=camera, image_size=size, splat_radius=0.02,
+            backface="soft" if ewa else "none")
+        ((img * w.to(device)).sum() + alpha.sum()).backward()
+        return [img, alpha, xs.grad] + ([ns.grad] if ewa else [])
+
+    for ewa in (True, False):
+        kind = "EWA (normals)" if ewa else "isotropic"
+        got = render(dev, ewa)
+        ref = render("cpu", ewa)
+        gap = max(((g.detach().cpu() - r.detach()).abs().max()
+                   / r.detach().abs().max().clamp_min(1e-30)).item()
+                  for g, r in zip(got, ref, strict=True))
+        ms = median_ms(torch, lambda ewa=ewa: render(dev, ewa), 3)
+        print(f"render_points {kind}: image, alpha and grads to xyz"
+              f"{' and normals' if ewa else ''} max |card - CPU| / max |CPU|"
+              f" = {gap!r} (bar {RENDER_TOL}); coverage "
+              f"{got[1].mean().item()!r}; "
+              f"forward + backward {ms!r} ms (plain PyTorch)")
+        if gap > RENDER_TOL or not all(torch.isfinite(g).all() for g in got):
+            fail(f"render_points ({kind}): the card differs from the CPU")
+
+    cv, cf = geometry_utils.generate_icosphere(2)
+    edges = geometry_utils.mesh_edges(cf)
+    verts = torch.from_numpy((cv[None] * (1 + 0.05 * rng.standard_normal(
+        (b, len(cv), 1)))).astype(np.float32)).to(dev)
+    ref_v = torch.from_numpy(np.repeat(cv[None], b, 0).astype(
+        np.float32)).to(dev)
+    y = (x + 0.01 * torch.from_numpy(rng.standard_normal(
+        (b, n, 3)).astype(np.float32)).to(dev))
+    mask = torch.from_numpy(rng.uniform(size=(b, n)) < VALID_SHARE).to(dev)
+    with torch.inference_mode():
+        kernel_ops = {  # name -> (loss of impl, its path's kernels)
+            "NormalLoss": (lambda impl: NormalLoss(impl=impl)(y, nrm, x, nrm),
+                           ("nn_dense", "gather")),
+            "PointEdgeLengthLoss": (lambda impl: PointEdgeLengthLoss(
+                impl=impl)(x, y), ("knn", "gather")),
+            "MeshEdgeLengthLoss": (lambda impl: MeshEdgeLengthLoss(
+                impl=impl)(verts, edges, ref_v), ("gather",)),
+        }
+        for name, (fn, required) in kernel_ops.items():
+            def call(fn=fn, name=name):
+                out[name] = fn("auto").item()
+
+            launches.append(drive(wrappers, required, f"DSS {name}", call))
+            plain = fn("torch").item()
+            print(f"{name}: kernels {out[name]!r}, plain {plain!r}")
+            if not np.isfinite(out[name]) or abs(out[name] - plain) > (
+                    1e-6 * abs(plain)):
+                fail(f"{name} differs from the plain versions")
+        cpu_ops = {
+            "SmapeLoss": lambda d: SmapeLoss()(y.to(d), x.to(d)),
+            "normalize_point_batch": lambda d: normalize_point_batch(
+                x.to(d), mask.to(d)),
+            "normalize_to_box": lambda d: normalize_to_box(x.to(d),
+                                                           mask.to(d)),
+            "voxel_downsample_mask": lambda d: voxel_downsample_mask(
+                x.to(d), 0.05, mask.to(d)),
+        }
+        for name, fn in cpu_ops.items():
+            got = fn(dev)
+            ref = fn("cpu")
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            gap = max((g.cpu().float() - r.float()).abs().max().item()
+                      for g, r in zip(got, ref, strict=True))
+            print(f"{name}: max |card - CPU| = {gap!r}"
+                  + (f"; kept {int(got[0].sum())} of {int(mask.sum())} valid"
+                     if name == "voxel_downsample_mask" else ""))
+            if gap > 1e-6:
+                fail(f"{name}: the card differs from the CPU")
+    return launches, {
+        f"render_points EWA fwd+bwd B={b} N={n} {size}x{size}":
+            lambda: render(dev, True),
+        f"batch_normals B={b} N={n} k={k}": lambda: batch_normals(x, k)}
+
+
 # How the port's kernels show in a trace: every kernel of csrc/ lives in an
 # anonymous namespace at the top level (PyTorch's own sit under at::).
 PORT_ITEMS = ("(anonymous namespace)::", "void (anonymous namespace)::")
@@ -2839,7 +3478,9 @@ def import_port():
 
     wrappers = {"fps": fps.fps_cuda, "ball_query": ballquery.ball_query_cuda,
                 "ball_query_coords": ballquery.ball_query_coords_cuda,
-                "gather": gather.gather_rows_cuda, "knn": topk_scan.knn_cuda,
+                "gather": gather.gather_rows_cuda,
+                "gather_bf16": gather.gather_rows_bf16_cuda,
+                "knn": topk_scan.knn_cuda,
                 "scatter": scatter.scatter_add_cuda,
                 "nn_dense": Launches(distance_tiles.nn_both_directions_cuda,
                                     distance_tiles.nn_one_direction_cuda),
@@ -2871,8 +3512,10 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
-          "torch.backends.cudnn.allow_tf32 = False")
+          "torch.backends.cudnn.allow_tf32 = False; bf16 matmuls reduce in "
+          "float32 (allow_bf16_reduced_precision_reduction = False)")
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -2892,11 +3535,12 @@ def main() -> int:
                   functools.partial(phase_knn, masked=True),
                   functools.partial(phase_headline, masked=True),
                   phase_fused, phase_pruned, phase_upsampler, phase_semseg,
-                  phase_config10):
+                  phase_config10, phase_sorted, phase_config5b,
+                  phase_remat_bn, phase_cages, phase_dss):
         counts, fns = phase(torch, dev, wrappers)
         paths += counts
         calls.update(fns)
-    print("== phase 16: profile one call of each main path")
+    print("== phase 21: profile one call of each main path")
     for label, fn in calls.items():
         profile_path(torch, label, fn)
 

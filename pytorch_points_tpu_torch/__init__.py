@@ -6,20 +6,21 @@ included). The hot ops run hand-written CUDA kernels (``csrc/``) on CUDA
 tensors and their plain PyTorch versions on CPU tensors; see
 ``kernels/dispatch.py``.
 
-The top level exports the reference's ported ops under its names
-(``pytorch_points_tpu/__init__.py``); ``batch_normals``,
-``normalize_point_batch``, ``normalize_to_box`` and
-``voxel_downsample_mask`` are not ported yet. ``layers`` holds SharedMLP,
-the PointNet++ SA/FP modules and DenseEdgeConv; ``models`` the
-PointNet2Encoder, PointCloudAutoencoder, PointNet2SemSeg,
-PointNet2Classifier and PointUpsampler; ``losses`` the Chamfer, EMD,
-repulsion and uniformity losses and the metrics. The host side: ``data``
-(PLY dataset, bucketed batcher, prefetcher, augmentation), ``utils``
-(I/O, checkpoints, Trainer, timing, profiling, export), ``misc`` (the
-logger) and ``_native`` (the C++ host library, built with g++ at first
-use). Not ported yet: ``norm="batch"``, ``remat`` and the bf16 ``dtype``
-policy, ``sample_and_group_sorted``, the losses built on ``geo/`` and
-``geo/`` itself, ``CageDeformer``, ``compat.torch_bridge`` and
+The top level exports the reference's ops under its names
+(``pytorch_points_tpu/__init__.py``) and its ``geo``, ``layers``,
+``losses`` and ``models`` modules. ``layers`` holds SharedMLP (LayerNorm
+or flax's BatchNorm, float32 or the bf16 ``dtype`` policy), the PointNet++
+SA/FP modules (with the Morton-consistent ``sorted_pipeline``) and
+DenseEdgeConv; ``models`` the PointNet2Encoder, PointCloudAutoencoder,
+PointNet2SemSeg, PointNet2Classifier (each with ``norm``, ``dtype`` and,
+where the reference has it, ``remat``), PointUpsampler and CageDeformer;
+``losses`` the Chamfer, EMD, SMAPE, Laplacian, normal, edge-length,
+repulsion and uniformity losses and the metrics; ``geo`` the mesh
+operators, mean value coordinates and differentiable splatting. The host
+side: ``data`` (PLY dataset, bucketed batcher, prefetcher,
+augmentation), ``utils`` (I/O, checkpoints, Trainer, timing, profiling,
+export), ``misc`` (the logger) and ``_native`` (the C++ host library,
+built with g++ at first use). Not ported yet: ``compat.torch_bridge`` and
 ``parallel/`` beyond the one-device step.
 This package imports ``torch`` and never ``jax``, ``flax`` or
 ``pytorch_points_tpu``.
@@ -29,6 +30,7 @@ __version__ = "0.1.0"
 
 from pytorch_points_tpu_torch.ops import (  # noqa: E402
     ball_query,
+    batch_normals,
     chamfer_distance,
     chamfer_path,
     earth_mover_distance,
@@ -39,14 +41,27 @@ from pytorch_points_tpu_torch.ops import (  # noqa: E402
     group_points,
     knn,
     nndistance,
+    normalize_point_batch,
+    normalize_to_box,
     sample_and_group,
+    sample_and_group_sorted,
     scatter_add,
     three_interpolate,
     three_nn,
+    voxel_downsample_mask,
 )
 
-__all__ = ["ball_query", "chamfer_distance", "chamfer_path",
+from pytorch_points_tpu_torch import (  # noqa: E402
+    geo,
+    layers,
+    losses,
+    models,
+)
+
+__all__ = ["ball_query", "batch_normals", "chamfer_distance", "chamfer_path",
            "earth_mover_distance", "furthest_point_sample",
-           "furthest_point_sample_and_gather", "gather_points", "group_knn",
-           "group_points", "knn", "nndistance", "sample_and_group",
-           "scatter_add", "three_interpolate", "three_nn"]
+           "furthest_point_sample_and_gather", "gather_points", "geo",
+           "group_knn", "group_points", "knn", "layers", "losses", "models",
+           "nndistance", "normalize_point_batch", "normalize_to_box",
+           "sample_and_group", "sample_and_group_sorted", "scatter_add",
+           "three_interpolate", "three_nn", "voxel_downsample_mask"]

@@ -47,6 +47,7 @@ _SIGNATURES = {
                               _P, _P],
     # features, idx, b, n, k, c, out, stream
     "ppt_gather_rows": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "ppt_gather_rows_bf16": [_P, _P, _I, _I, _I, _I, _P, _P],
     # qry, sup, b, nq, ns, c, k, lists, out_d, out_i, stream
     "ppt_knn": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "ppt_knn_scratch_keys": [_I, _I, _I, _P],

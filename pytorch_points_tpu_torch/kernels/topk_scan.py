@@ -72,7 +72,13 @@ def knn_torch(query: torch.Tensor, support: torch.Tensor, k: int):
 
 def knn_cuda(query: torch.Tensor, support: torch.Tensor, k: int):
     """Launch the CUDA kernel: same contract as :func:`knn_torch`, any C,
-    1 <= k <= Ns, one pass for every k."""
+    1 <= k <= Ns, one pass for every k. bfloat16 clouds are cast to float32
+    first, as the reference's Pallas scans cast theirs (exact: the indices
+    are those of a float32 call on the cast values)."""
+    if query.dtype == torch.bfloat16:
+        query = query.to(torch.float32)
+    if support.dtype == torch.bfloat16:
+        support = support.to(torch.float32)
     b, nq, c = query.shape
     ns = support.shape[1]
     _build.require(query, "knn query", torch.float32, (b, nq, c))
@@ -480,7 +486,12 @@ def knn(query: torch.Tensor, support: torch.Tensor, k: int,
         masked: bool = False, impl: str = "auto"):
     """[B,Nq,C], [B,Ns,C] -> (dist [B,Nq,k] squared ascending, idx int32).
 
-    Exact, lowest-index ties, any 1 <= k <= Ns. Masked supports arrive
+    Exact, lowest-index ties, any 1 <= k <= Ns. Clouds of another float
+    dtype (bfloat16 features under the mixed-precision policy) are cast to
+    float32 at entry, as the reference's Pallas scans cast them: the cast is
+    exact, so the indices are those of a float32 call on the cast values
+    (the reference's CPU XLA fallback computes bfloat16 distances instead).
+    Masked supports arrive
     poisoned (``ops.grouping.knn``) with ``masked=True``. xyz supports of
     ``RING_MIN_NS`` to 2^24 points take the ring scan; ``sorted_ok=False``
     forces the streaming scan (the ring scan's cross-check), which every

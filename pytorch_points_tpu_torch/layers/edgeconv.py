@@ -24,22 +24,26 @@ class DenseEdgeConv(nn.Module):
     paths are the JAX module's (``first/...``, ``convs/0/...``). Weights are
     drawn from ``generator`` (seed 0 when None) on the CPU, then moved to
     ``device``, the card unless the caller names another device.
+
+    dtype: the convs' computation dtype (None: float32), as
+    :class:`SharedMLP`'s; parameters stay float32. A feature-space graph
+    of bfloat16 features is searched on their float32 casts (exact).
     """
 
     def __init__(self, in_channels: int, growth_rate: int, n: int = 3,
-                 k: int = 16, *, device="cuda",
-                 generator: torch.Generator | None = None):
+                 k: int = 16, *, dtype: torch.dtype | None = None,
+                 device="cuda", generator: torch.Generator | None = None):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.k = k
         self.n = n
         self.growth_rate = growth_rate
-        self.first = _linear(2 * in_channels, growth_rate, generator)
+        self.first = _linear(2 * in_channels, growth_rate, generator, dtype)
         convs = []
         cin = in_channels + growth_rate
         for _ in range(n - 1):
-            convs.append(_linear(cin, growth_rate, generator))
+            convs.append(_linear(cin, growth_rate, generator, dtype))
             cin += growth_rate
         self.convs = nn.ModuleList(convs)
         self.to(device)

@@ -18,6 +18,7 @@ from pytorch_points_tpu_torch.ops import (
     group_all,
     interpolation_weights,
     sample_and_group,
+    sample_and_group_sorted,
     three_interpolate,
     three_nn,
 )
@@ -33,13 +34,20 @@ class PointNetSAModule(nn.Module):
       radius: ball radius (None -> kNN grouping).
       nsample: neighbours per centroid.
       use_xyz: concat centred coords to grouped features.
+      sorted_pipeline: group with :func:`ops.sample_and_group_sorted` (the
+        Morton-consistent front half: the pooled output is the same
+        function of the same neighbourhood sets, centroids in Morton
+        order, a saturated ball an equivalent sampling); used with radius
+        grouping and no mask, else the call takes ``sample_and_group``.
+      norm, dtype: the shared MLP's (:class:`SharedMLP`).
     """
 
     def __init__(self, in_channels: int, mlp: Sequence[int], *,
                  npoint: int | None = None, radius: float | None = None,
                  nsample: int = 32, use_xyz: bool = True,
                  normalize_radius: bool = False, group_all: bool = False,
-                 norm: str | None = "layer", device="cuda",
+                 sorted_pipeline: bool = False, norm: str | None = "layer",
+                 dtype: torch.dtype | None = None, device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
         self.npoint = npoint
@@ -48,9 +56,10 @@ class PointNetSAModule(nn.Module):
         self.use_xyz = use_xyz
         self.normalize_radius = normalize_radius
         self.group_all = group_all
+        self.sorted_pipeline = sorted_pipeline
         cin = in_channels + (3 if use_xyz or in_channels == 0 else 0)
-        self.mlp = SharedMLP([cin, *mlp], norm=norm, device=device,
-                             generator=generator)
+        self.mlp = SharedMLP([cin, *mlp], norm=norm, dtype=dtype,
+                             device=device, generator=generator)
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor | None = None,
                 mask: torch.Tensor | None = None, impl: str = "auto"):
@@ -58,6 +67,13 @@ class PointNetSAModule(nn.Module):
         if self.group_all:
             new_xyz, grouped, _, _ = group_all(xyz, features,
                                                use_xyz=self.use_xyz)
+        elif (self.sorted_pipeline and self.radius is not None
+              and mask is None):
+            new_xyz, grouped, _, _, _ = sample_and_group_sorted(
+                xyz, features, self.npoint, self.nsample, self.radius,
+                use_xyz=self.use_xyz, normalize_radius=self.normalize_radius,
+                impl=impl,
+            )
         else:
             new_xyz, grouped, _, _ = sample_and_group(
                 xyz, features, self.npoint, self.nsample, self.radius,
@@ -72,11 +88,11 @@ class PointNetFPModule(nn.Module):
     """Feature propagation: 3-NN inverse-distance upsampling + skip + MLP."""
 
     def __init__(self, in_channels: int, mlp: Sequence[int], *,
-                 norm: str | None = "layer", device="cuda",
-                 generator: torch.Generator | None = None):
+                 norm: str | None = "layer", dtype: torch.dtype | None = None,
+                 device="cuda", generator: torch.Generator | None = None):
         super().__init__()
-        self.mlp = SharedMLP([in_channels, *mlp], norm=norm, device=device,
-                             generator=generator)
+        self.mlp = SharedMLP([in_channels, *mlp], norm=norm, dtype=dtype,
+                             device=device, generator=generator)
 
     def forward(self, xyz_hi: torch.Tensor, xyz_lo: torch.Tensor,
                 feat_hi: torch.Tensor | None, feat_lo: torch.Tensor,

@@ -3,7 +3,13 @@
 from pytorch_points_tpu_torch.losses.losses import (
     ChamferLoss,
     EMDLoss,
+    MeshEdgeLengthLoss,
+    MeshLaplacianLoss,
+    NormalLoss,
+    PointEdgeLengthLoss,
+    PointLaplacianLoss,
     RepulsionLoss,
+    SmapeLoss,
     UniformLoss,
 )
 from pytorch_points_tpu_torch.losses.metrics import (
@@ -17,7 +23,13 @@ from pytorch_points_tpu_torch.losses.metrics import (
 __all__ = [
     "ChamferLoss",
     "EMDLoss",
+    "MeshEdgeLengthLoss",
+    "MeshLaplacianLoss",
+    "NormalLoss",
+    "PointEdgeLengthLoss",
+    "PointLaplacianLoss",
     "RepulsionLoss",
+    "SmapeLoss",
     "UniformLoss",
     "chamfer_l1",
     "coverage_and_mmd",

@@ -1,6 +1,8 @@
-"""Loss callables (counterpart of the JAX ``losses/losses.py``): so far the
-Chamfer, EMD, repulsion and uniformity losses. Each is a frozen dataclass:
-configuration in the constructor, the loss in ``__call__``.
+"""Loss callables (counterpart of the JAX ``losses/losses.py``): Chamfer,
+EMD, SMAPE, the point and mesh Laplacian losses, the normal loss, the
+point and mesh edge-length losses, repulsion and uniformity. Each is a
+frozen dataclass: configuration in the constructor, the loss in
+``__call__``; ``impl`` selects the kernels' route (kernels.dispatch).
 """
 
 from __future__ import annotations
@@ -10,10 +12,12 @@ import math
 
 import torch
 
+from pytorch_points_tpu_torch import geo
 from pytorch_points_tpu_torch.ops import (
     earth_mover_distance,
     furthest_point_sample,
     gather_points,
+    group_points,
     knn,
     nndistance,
     pairwise_sqdist,
@@ -116,6 +120,127 @@ class EMDLoss:
         else:  # masked slots carry dist 0; mean over the VALID count
             per = dist.sum(-1) / torch.clamp_min(pred_mask.sum(-1), 1)
         return _reduce(per, self.reduction)
+
+
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt((x * x).sum(-1))
+
+
+@dataclasses.dataclass(frozen=True)
+class SmapeLoss:
+    """Symmetric mean absolute percentage error |x-y| / (|x|+|y|+eps)."""
+
+    eps: float = 1e-8
+    reduction: str = "mean"
+
+    def __call__(self, pred, gt):
+        e = (pred - gt).abs() / (pred.abs() + gt.abs() + self.eps)
+        return _reduce(e, self.reduction)
+
+
+@dataclasses.dataclass(frozen=True)
+class PointLaplacianLoss:
+    """Compare the graph-Laplacian coordinates of two clouds under the
+    *reference cloud's* kNN neighbourhoods (detail preservation):
+    ``metric`` "l2" (squared) or "l1" of the difference, or of the
+    magnitudes alone with ``use_norm``."""
+
+    k: int = 8
+    metric: str = "l2"  # l2 | l1
+    use_norm: bool = False  # compare magnitudes only
+    reduction: str = "mean"
+    impl: str = "auto"
+
+    def __call__(self, gt, pred, gt_mask=None):
+        lap_gt, idx = geo.point_laplacian(gt, self.k, mask=gt_mask,
+                                          impl=self.impl)
+        lap_pred, _ = geo.point_laplacian(pred, self.k, idx=idx,
+                                          impl=self.impl)
+        if self.use_norm:
+            a, b = _norm(lap_gt), _norm(lap_pred)
+        else:
+            a, b = lap_gt, lap_pred
+        diff = (a - b).abs() if self.metric == "l1" else (a - b) ** 2
+        if gt_mask is not None:
+            diff = torch.where(gt_mask[..., None] if diff.dim() == 3
+                               else gt_mask, diff, 0.0)
+        return _reduce(diff, self.reduction)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshLaplacianLoss:
+    """Laplacian comparison (or magnitude) on meshes of one topology: the
+    uniform Laplacian (``faces_or_edges`` edges) or the cotangent one
+    (faces). With ``compare`` and ``verts_ref``, the squared change of the
+    Laplacian; otherwise its squared magnitude (smoothing)."""
+
+    uniform: bool = True
+    compare: bool = True
+    reduction: str = "mean"
+    impl: str = "auto"
+
+    def __call__(self, verts, faces_or_edges, verts_ref=None):
+        lap_fn = geo.uniform_laplacian if self.uniform else geo.cot_laplacian
+        lap = lap_fn(verts, faces_or_edges, impl=self.impl)
+        if self.compare and verts_ref is not None:
+            lap_ref = lap_fn(verts_ref, faces_or_edges, impl=self.impl)
+            return _reduce((lap - lap_ref) ** 2, self.reduction)
+        return _reduce(lap**2, self.reduction)
+
+
+@dataclasses.dataclass(frozen=True)
+class NormalLoss:
+    """1 - |cos| between the normals of matched (nearest) points: each
+    prediction point's nearest ground-truth point (the dense or sorted
+    NN), its normal gathered (K3)."""
+
+    reduction: str = "mean"
+    impl: str = "auto"
+
+    def __call__(self, pred, pred_normals, gt, gt_normals):
+        _, idx, _, _ = nndistance(pred, gt, impl=self.impl)
+        matched = gather_points(gt_normals, idx, self.impl)
+        cos = (pred_normals * matched).sum(-1)
+        denom = torch.clamp_min(_norm(pred_normals) * _norm(matched), 1e-12)
+        return _reduce(1.0 - (cos / denom).abs(), self.reduction)
+
+
+@dataclasses.dataclass(frozen=True)
+class PointEdgeLengthLoss:
+    """Penalise the change of kNN edge lengths between two clouds, under
+    the first cloud's neighbourhoods (self excluded)."""
+
+    k: int = 8
+    metric: str = "l2"
+    reduction: str = "mean"
+    impl: str = "auto"
+
+    def __call__(self, gt, pred):
+        _, idx = knn(gt, gt, self.k + 1, impl=self.impl)
+        idx = idx[..., 1:]
+        d_gt = _norm(group_points(gt, idx, self.impl) - gt[:, :, None, :])
+        d_pred = _norm(group_points(pred, idx, self.impl)
+                       - pred[:, :, None, :])
+        diff = ((d_gt - d_pred).abs() if self.metric == "l1"
+                else (d_gt - d_pred) ** 2)
+        return _reduce(diff, self.reduction)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshEdgeLengthLoss:
+    """Penalise mesh edge-length deviation: from ``verts_ref``'s lengths,
+    or else from each mesh's mean edge length."""
+
+    reduction: str = "mean"
+    impl: str = "auto"
+
+    def __call__(self, verts, edges, verts_ref=None):
+        el = geo.edge_lengths(verts, edges, impl=self.impl)
+        if verts_ref is not None:
+            target = geo.edge_lengths(verts_ref, edges, impl=self.impl)
+            return _reduce((el - target) ** 2, self.reduction)
+        return _reduce((el - el.mean(-1, keepdim=True)) ** 2,
+                       self.reduction)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,6 +7,14 @@ per-point logits head, ``PointNet2Classifier`` the SA encoder with a head
 on the global code. They serve (forward) and train: every op on their paths
 is a ``torch.autograd.Function`` with the reference's backward rule
 (``parallel/data_parallel.py`` builds the train step).
+
+Every model takes the reference's ``norm`` ("layer", "batch" or None),
+``dtype`` (None or ``torch.bfloat16``, the bf16 policy of
+``core/dtypes.py``) and, where the reference has it, ``remat``: each SA and
+FP stage is then checkpointed (``torch.utils.checkpoint``, non-reentrant)
+while grad is enabled, its activations recomputed in the backward instead
+of kept, as ``nnx.remat`` does. The recompute leaves BatchNorm's running
+statistics alone, so they are updated once a step, as under nnx.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from pytorch_points_tpu_torch.layers import (
     PointNetSAModule,
     SharedMLP,
 )
+from pytorch_points_tpu_torch.layers.blocks import remat_call
 
 
 def _build_fp_stack(model: nn.Module, kw: dict) -> None:
@@ -34,22 +43,29 @@ def _fp_decode(model: nn.Module, xyzs, feats, impl: str) -> torch.Tensor:
     (xyz, xyz1, xyz2, xyz3), (None, f1, f2, f3) -> per-point features
     [B,N,128]."""
     (x0, x1, x2, x3), (_, f1, f2, f3) = xyzs, feats
-    g2 = model.fp3(x2, x3, f2, f3, impl=impl)  # x3 is [B,1,3]: broadcast
-    g1 = model.fp2(x1, x2, f1, g2, impl=impl)
-    return model.fp1(x0, x1, None, g1, impl=impl)
+    r = model.remat
+    g2 = remat_call(model.fp3, r, x2, x3, f2, f3, impl=impl)  # x3 [B,1,3]
+    g1 = remat_call(model.fp2, r, x1, x2, f1, g2, impl=impl)
+    return remat_call(model.fp1, r, x0, x1, None, g1, impl=impl)
 
 
 class PointNet2Encoder(nn.Module):
-    """3-level SA hierarchy -> per-level features + global code."""
+    """3-level SA hierarchy -> per-level features + global code.
+
+    ``remat`` checkpoints each SA stage: its grouped [B,P,nsample,C]
+    activations are the forward's memory peak, so one recompute trades
+    for the dominant activation storage at large N."""
 
     def __init__(self, npoint1: int = 512, npoint2: int = 128,
                  radius1: float = 0.2, radius2: float = 0.4,
                  nsample: int = 32, *, norm: str | None = "layer",
+                 dtype: torch.dtype | None = None, remat: bool = False,
                  device="cuda", generator: torch.Generator | None = None):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        kw = dict(norm=norm, device=device, generator=generator)
+        self.remat = remat
+        kw = dict(norm=norm, dtype=dtype, device=device, generator=generator)
         self.sa1 = PointNetSAModule(0, [64, 64, 128], npoint=npoint1,
                                     radius=radius1, nsample=nsample, **kw)
         self.sa2 = PointNetSAModule(128, [128, 128, 256], npoint=npoint2,
@@ -59,29 +75,35 @@ class PointNet2Encoder(nn.Module):
 
     def forward(self, xyz: torch.Tensor, mask: torch.Tensor | None = None,
                 impl: str = "auto"):
-        xyz1, f1 = self.sa1(xyz, None, mask, impl=impl)
-        xyz2, f2 = self.sa2(xyz1, f1, impl=impl)
-        xyz3, f3 = self.sa3(xyz2, f2, impl=impl)
+        r = self.remat
+        xyz1, f1 = remat_call(self.sa1, r, xyz, None, mask, impl=impl)
+        xyz2, f2 = remat_call(self.sa2, r, xyz1, f1, impl=impl)
+        xyz3, f3 = remat_call(self.sa3, r, xyz2, f2, impl=impl)
         return (xyz, xyz1, xyz2, xyz3), (None, f1, f2, f3)
 
 
 class PointCloudAutoencoder(nn.Module):
     """SA encoder -> FP decoder -> per-point coordinate head.
 
-    Reconstructs the input cloud as ``xyz + offsets``. Weights are drawn
-    from ``generator`` (seed 0 when None) on the CPU, then moved to
-    ``device``, "cuda" unless the caller asks for another (``"cpu"``);
-    ``compat.load_jax_params`` loads the JAX model's instead.
+    Reconstructs the input cloud as ``xyz + offsets``; under a bf16
+    ``dtype`` the add promotes the offsets back to the coordinates'
+    float32, so the loss kernels see float32. ``remat`` checkpoints each SA
+    and FP stage. Weights are drawn from ``generator`` (seed 0 when None)
+    on the CPU, then moved to ``device``, "cuda" unless the caller asks for
+    another (``"cpu"``); ``compat.load_jax_params`` loads the JAX model's
+    instead.
     """
 
     def __init__(self, npoint1: int = 512, npoint2: int = 128, *,
-                 norm: str | None = "layer", device="cuda",
+                 norm: str | None = "layer", dtype: torch.dtype | None = None,
+                 remat: bool = False, device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        kw = dict(norm=norm, device=device, generator=generator)
-        self.encoder = PointNet2Encoder(npoint1, npoint2, **kw)
+        self.remat = remat
+        kw = dict(norm=norm, dtype=dtype, device=device, generator=generator)
+        self.encoder = PointNet2Encoder(npoint1, npoint2, remat=remat, **kw)
         _build_fp_stack(self, kw)
         self.head = SharedMLP([128, 64, 3], act_last=False, **kw)
 
@@ -100,12 +122,13 @@ class PointNet2Classifier(nn.Module):
     """The PointNet++ SSG classifier: the SA encoder at its defaults, then
     a head on the global code: [B,N,3] -> logits [B,num_classes]."""
 
-    def __init__(self, num_classes: int = 40, *, device="cuda",
+    def __init__(self, num_classes: int = 40, *,
+                 dtype: torch.dtype | None = None, device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        kw = dict(device=device, generator=generator)
+        kw = dict(dtype=dtype, device=device, generator=generator)
         self.encoder = PointNet2Encoder(**kw)
         self.head = SharedMLP([1024, 512, 256, num_classes], act_last=False,
                               **kw)
@@ -123,12 +146,14 @@ class PointNet2SemSeg(nn.Module):
 
     def __init__(self, num_classes: int, *, npoint1: int = 512,
                  npoint2: int = 128, norm: str | None = "layer",
+                 dtype: torch.dtype | None = None, remat: bool = False,
                  device="cuda", generator: torch.Generator | None = None):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        kw = dict(norm=norm, device=device, generator=generator)
-        self.encoder = PointNet2Encoder(npoint1, npoint2, **kw)
+        self.remat = remat
+        kw = dict(norm=norm, dtype=dtype, device=device, generator=generator)
+        self.encoder = PointNet2Encoder(npoint1, npoint2, remat=remat, **kw)
         _build_fp_stack(self, kw)
         self.head = SharedMLP([128, 128, num_classes], act_last=False, **kw)
 

@@ -42,17 +42,23 @@ class PointUpsampler(nn.Module):
     as in the JAX model so ``compat.load_jax_params`` maps them. Weights are
     drawn from ``generator`` (seed 0 when None) on the CPU, then moved to
     ``device``, the card unless the caller names another device.
+
+    dtype: the computation dtype of every layer (None: float32; the bf16
+    policy, ``core/dtypes.py``); parameters stay float32, and the residual
+    add promotes the offsets back to the coordinates' float32, so the loss
+    kernels see float32.
     """
 
     def __init__(self, ratio: int = 4, channels: int = 24,
                  growth_rate: int = 24, dense_n: int = 3, k: int = 16, *,
-                 device="cuda", generator: torch.Generator | None = None):
+                 dtype: torch.dtype | None = None, device="cuda",
+                 generator: torch.Generator | None = None):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        kw = dict(device=device, generator=generator)
+        kw = dict(dtype=dtype, device=device, generator=generator)
         self.ratio = ratio
-        self.lift = _linear(3, channels, generator)
+        self.lift = _linear(3, channels, generator, dtype)
         self.edge1 = DenseEdgeConv(channels, growth_rate, dense_n, k, **kw)
         c1 = channels + dense_n * growth_rate
         self.edge2 = DenseEdgeConv(c1, growth_rate, dense_n, k, **kw)

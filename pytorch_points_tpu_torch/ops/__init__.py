@@ -13,12 +13,18 @@ from pytorch_points_tpu_torch.ops.grouping import (
     knn,
     knn_path,
     sample_and_group,
+    sample_and_group_sorted,
 )
 from pytorch_points_tpu_torch.ops.interpolate import (
     interpolation_weights,
     three_interpolate,
     three_nn,
 )
+from pytorch_points_tpu_torch.ops.normalize import (
+    normalize_point_batch,
+    normalize_to_box,
+)
+from pytorch_points_tpu_torch.ops.normals import batch_normals
 from pytorch_points_tpu_torch.ops.pairwise import pairwise_sqdist
 from pytorch_points_tpu_torch.ops.sampling import (
     furthest_point_sample,
@@ -27,9 +33,11 @@ from pytorch_points_tpu_torch.ops.sampling import (
     random_sample,
     scatter_add,
 )
+from pytorch_points_tpu_torch.ops.voxel import voxel_downsample_mask
 
 __all__ = [
     "ball_query",
+    "batch_normals",
     "chamfer_distance",
     "chamfer_path",
     "duplicate_shadow_mask",
@@ -44,10 +52,14 @@ __all__ = [
     "knn",
     "knn_path",
     "nndistance",
+    "normalize_point_batch",
+    "normalize_to_box",
     "pairwise_sqdist",
     "random_sample",
     "sample_and_group",
+    "sample_and_group_sorted",
     "scatter_add",
     "three_interpolate",
     "three_nn",
+    "voxel_downsample_mask",
 ]

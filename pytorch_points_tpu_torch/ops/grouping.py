@@ -12,6 +12,9 @@ Reference semantics:
   * _bq_group_centered: the fused SA front half, a ball query that emits
     the centred grouped coordinates in its scan; backward as the
     reference's ``custom_vjp``.
+  * sample_and_group_sorted: the Morton-consistent SA front half (FPS on
+    the sorted cloud, centroids in Morton order, the ball query on the
+    original order).
 
 Indices carry no gradient: the searches run on detached clouds. kNN
 distances are differentiable in both clouds with the neighbour set held
@@ -23,10 +26,16 @@ C != 3 channels, the streaming scan (K8): ``knn_path`` names the route.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pytorch_points_tpu_torch.core.masking import poison_points
-from pytorch_points_tpu_torch.kernels import ballquery, dispatch, topk_scan
+from pytorch_points_tpu_torch.kernels import (
+    ballquery,
+    dispatch,
+    nn_sorted,
+    topk_scan,
+)
 from pytorch_points_tpu_torch.kernels.gather import gather_rows
 from pytorch_points_tpu_torch.ops.sampling import (
     furthest_point_sample_and_gather,
@@ -215,6 +224,13 @@ def _bq_group_centered(xyz: torch.Tensor, centroids: torch.Tensor,
     return _BqGroupCentered.apply(xyz, centroids, radius, nsample, impl)
 
 
+def _per_radius(centered: torch.Tensor, radius: float) -> torch.Tensor:
+    """``centered / radius`` as the jitted reference computes it: XLA folds
+    the division by the constant radius into a product with its float32
+    reciprocal."""
+    return centered * float(np.float32(1.0) / np.float32(radius))
+
+
 def sample_and_group(xyz: torch.Tensor, features: torch.Tensor | None,
                      npoint: int, nsample: int, radius: float | None = None,
                      *, use_xyz: bool = True, normalize_radius: bool = False,
@@ -234,7 +250,7 @@ def sample_and_group(xyz: torch.Tensor, features: torch.Tensor | None,
     grouped_xyz = group_points(xyz, idx, impl)
     centered = grouped_xyz - new_xyz[:, :, None, :]
     if normalize_radius and radius is not None:
-        centered = centered / radius
+        centered = _per_radius(centered, radius)
     if features is None:
         new_features = centered
     else:
@@ -242,6 +258,60 @@ def sample_and_group(xyz: torch.Tensor, features: torch.Tensor | None,
         if use_xyz:
             new_features = torch.cat([centered, new_features], dim=-1)
     return new_xyz, new_features, idx, grouped_xyz
+
+
+def sample_and_group_sorted(xyz: torch.Tensor,
+                            features: torch.Tensor | None, npoint: int,
+                            nsample: int, radius: float, *,
+                            use_xyz: bool = True,
+                            normalize_radius: bool = False,
+                            impl: str = "auto"):
+    """Morton-consistent SA front half for order-free consumers (an SA
+    layer's MLP and max-pool).
+
+    The cloud is Morton-sorted once for FPS (K1, seeded with the sorted
+    position of point 0, so the selected set is ``sample_and_group``'s,
+    exact ties aside), and the centroids come out in Morton order. The
+    ball query (K2) scans the cloud in its ORIGINAL order: a scan of the
+    sorted cloud fills each query only when it reaches its region, so no
+    query's scan ends early. Coordinates and features are grouped (K3)
+    from the original-order arrays, so no feature permute runs.
+
+    The neighbourhood sets are ``sample_and_group``'s, with three
+    differences: the centroids arrive in Morton order; the hits within a
+    group follow the original-index scan; and a ball holding more than
+    ``nsample`` points keeps the first ``nsample`` in original order for
+    this centroid order (an equivalent ball sampling). Masked clouds take
+    ``sample_and_group``.
+
+    Returns (new_xyz [B,P,3] in Morton order, new_features
+    [B,P,nsample,C'], idx [B,P,nsample] int32 into the SORTED cloud,
+    grouped_xyz [B,P,nsample,3], perm [B,N] int32 with sorted =
+    xyz[perm]), each bitwise the reference's.
+    """
+    xyz = xyz.to(torch.float32)
+    xs, perm = nn_sorted.sort_by_morton(xyz)
+    # inv[perm[r]] = r: the sorted position of each original point; the
+    # sorted position of point 0 seeds FPS
+    inv = torch.argsort(perm, dim=1)
+    cen, _ = furthest_point_sample_and_gather(
+        xs, npoint, impl=impl, seed_idx=inv[:, 0].to(torch.int32))
+    cs, _ = nn_sorted.sort_by_morton(cen)
+    idx_orig, _ = ball_query(xyz, cs, radius, nsample, impl=impl)
+    grouped_xyz = group_points(xyz, idx_orig, impl)
+    centered = grouped_xyz - cs[:, :, None, :]
+    if normalize_radius:
+        centered = _per_radius(centered, radius)
+    if features is None:
+        new_features = centered
+    else:
+        new_features = group_points(features, idx_orig, impl)
+        if use_xyz:
+            new_features = torch.cat([centered, new_features], dim=-1)
+    b = xyz.shape[0]
+    idx = inv.gather(1, idx_orig.reshape(b, -1).long()).reshape(
+        idx_orig.shape).to(torch.int32)
+    return cs, new_features, idx, grouped_xyz, perm
 
 
 def group_all(xyz: torch.Tensor, features: torch.Tensor | None, *,

@@ -3,14 +3,17 @@
 
 For each high-res point, its 3 nearest low-res points (squared distances +
 indices); low-res features are interpolated with inverse-distance weights.
-The backward scatters weighted gradients to the low-res points (kernel K4)
-and gradients flow into both clouds through the kNN distances.
+The low-res features are gathered by the row gather (kernel K3, its
+bfloat16 instance for bf16 features); the backward scatters weighted
+gradients to the low-res points (kernel K4) and gradients flow into both
+clouds through the kNN distances.
 """
 
 from __future__ import annotations
 
 import torch
 
+from pytorch_points_tpu_torch.kernels.gather import gather_rows
 from pytorch_points_tpu_torch.ops.grouping import knn
 from pytorch_points_tpu_torch.ops.scatter_impl import scatter_add_auto
 
@@ -28,24 +31,25 @@ def interpolation_weights(dist: torch.Tensor, eps: float = 1e-8):
     return recip / recip.sum(dim=-1, keepdim=True)
 
 
-def _gathered(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """[B,m,C], [B,n,k] -> [B,n,k,C] (plain torch, as the reference's XLA)."""
+def _gathered(features: torch.Tensor, idx: torch.Tensor,
+              impl: str) -> torch.Tensor:
+    """[B,m,C], [B,n,k] -> [B,n,k,C], by the row gather (K3): exact, as the
+    reference's XLA gather."""
     b, n, k = idx.shape
-    return features.gather(
-        1, idx.long().reshape(b, n * k, 1).expand(b, n * k,
-                                                  features.shape[-1])
-    ).reshape(b, n, k, -1)
+    return gather_rows(features, idx.reshape(b, n * k), impl=impl).reshape(
+        b, n, k, -1)
 
 
 class _ThreeInterpolate(torch.autograd.Function):
-    """Forward in plain torch. Backward: a scatter-add (K4) of the weighted
-    gradient into the features, and the gathered dot for the weights."""
+    """Forward: the gather (K3), then the weighted sum in plain torch.
+    Backward: a scatter-add (K4) of the weighted gradient into the
+    features, and the gathered dot for the weights."""
 
     @staticmethod
     def forward(ctx, features, idx, weight, impl):
         ctx.save_for_backward(features, idx, weight)
         ctx.impl = impl
-        return (_gathered(features, idx) * weight[..., None]).sum(dim=2)
+        return (_gathered(features, idx, impl) * weight[..., None]).sum(dim=2)
 
     @staticmethod
     def backward(ctx, g):
@@ -58,7 +62,8 @@ class _ThreeInterpolate(torch.autograd.Function):
             grad_f = scatter_add_auto(idx.reshape(b, n * k),
                                       wg.reshape(b, n * k, c), m, ctx.impl)
         if ctx.needs_input_grad[2]:
-            grad_w = (_gathered(features, idx) * g[:, :, None, :]).sum(dim=-1)
+            grad_w = (_gathered(features, idx, ctx.impl)
+                      * g[:, :, None, :]).sum(dim=-1)
         return grad_f, None, grad_w, None
 
 

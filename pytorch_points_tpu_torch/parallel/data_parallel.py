@@ -13,22 +13,31 @@ from collections.abc import Callable
 import torch
 from torch import nn
 
+from pytorch_points_tpu_torch.layers.blocks import remat_call
 from pytorch_points_tpu_torch.ops import chamfer_distance, earth_mover_distance
 
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
-                    loss_fn: Callable[[nn.Module, dict], torch.Tensor]):
+                    loss_fn: Callable[[nn.Module, dict], torch.Tensor], *,
+                    remat: bool = False):
     """``step(batch) -> loss``: forward ``loss_fn(model, batch)``, backward,
     one optimizer update; returns the loss (detached, on its device).
 
     For the reference's ``optax.adam(lr)`` pass ``torch.optim.Adam(
     model.parameters(), lr)``: its defaults are optax's (betas 0.9 and
     0.999, eps 1e-8 added outside the square root, bias-corrected moments).
+
+    ``remat`` checkpoints the whole ``loss_fn`` (``torch.utils.checkpoint``,
+    non-reentrant; the reference's ``nnx.remat`` of its local loss): the
+    forward's activations are recomputed in the backward instead of kept.
+    The recompute leaves BatchNorm's running statistics alone, so a step
+    updates them once. Non-parameter state (BatchNorm's running statistics)
+    lives in the model's buffers and is updated in place.
     """
 
     def step(batch):
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model, batch)
+        loss = remat_call(loss_fn, remat, model, batch, frozen=model)
         loss.backward()
         optimizer.step()
         return loss.detach()

@@ -3,8 +3,8 @@
 
 Self-contained OBJ / OFF / PLY triangle-mesh readers and writers plus the
 grid/sphere template generators the Neural-Cages lineage uses.
-``mesh_edges`` is the JAX ``geo/mesh_ops.py`` function (numpy there too),
-kept here because that module imports JAX.
+``mesh_edges`` is the JAX ``geo/mesh_ops.py`` function (numpy there too);
+the port's ``geo.mesh_ops`` exports this one.
 """
 
 from __future__ import annotations

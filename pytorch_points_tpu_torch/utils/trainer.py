@@ -31,8 +31,9 @@ class Trainer:
       log_every / ckpt_every: step intervals.
       nan_guard: at every log point, raise on a non-finite loss (after
         naming the non-finite parameters).
-      remat: the reference's rematerialized forward; not ported yet, so
-        True raises NotImplementedError.
+      remat: recompute the forward in the backward instead of keeping its
+        activations (``make_train_step(remat=True)``: the whole loss
+        checkpointed), as the reference's rematerialised step does.
 
     The reference's ``mesh`` (an SPMD step over every device) has no
     counterpart: this trainer drives one device.
@@ -41,12 +42,10 @@ class Trainer:
     def __init__(self, model, optimizer, loss_fn, *, ckpt_dir=None,
                  log_every: int = 50, ckpt_every: int = 1000,
                  nan_guard: bool = True, remat: bool = False):
-        if remat:
-            raise NotImplementedError(
-                "remat (torch.utils.checkpoint) is not ported yet")
         self.model = model
         self.optimizer = optimizer
-        self.step_fn = make_train_step(model, optimizer, loss_fn)
+        self.step_fn = make_train_step(model, optimizer, loss_fn,
+                                       remat=remat)
         self.ckpt_dir = ckpt_dir
         self.log_every = log_every
         self.ckpt_every = ckpt_every

@@ -383,6 +383,88 @@ def test_gather_cuda_matches_plain(dev, c):
     _assert_same([got, older, shifted], [ref, ref, ref])
 
 
+@pytest.mark.parametrize("c", [1, 3, 4, 5, 6, 24, 96, 128, 256])
+def test_gather_bf16_cuda_matches_plain(dev, c):
+    # the bf16 instance: C <= 4 lane by lane, C % 8 == 0 16-byte vectors,
+    # other even C 4-byte words, odd C 2-byte elements; bitwise (a copy),
+    # NaN and infinity patterns included
+    rng = np.random.default_rng(6)
+    f, idx = _on(dev, rng.standard_normal((3, 700, c)).astype(np.float32),
+                 rng.integers(0, 700, (3, 4100)).astype(np.int32))
+    f = f.to(torch.bfloat16)
+    f[0, 0, 0], f[0, 1, 0] = float("nan"), float("inf")
+    idx[0, :2] = torch.tensor([0, 1], device=dev)
+    launches = gather.gather_rows_bf16_cuda.launches
+    with torch.inference_mode():
+        got = gather.gather_rows(f, idx, impl="cuda")
+        ref = gather.gather_rows(f, idx, impl="torch")
+        # rows 2 bytes off every alignment take the element instance
+        odd = torch.empty(f.numel() + 1, dtype=f.dtype, device=dev)[1:]
+        odd = odd.view(f.shape)
+        odd.copy_(f)
+        shifted = gather.gather_rows(odd, idx, impl="cuda")
+    assert got.dtype == torch.bfloat16
+    assert gather.gather_rows_bf16_cuda.launches == launches + 2
+    for g in (got, shifted):
+        assert torch.equal(g.view(torch.int16), ref.view(torch.int16))
+
+
+def test_gather_cuda_rejects_other_dtypes(dev):
+    f = torch.zeros((1, 8, 4), dtype=torch.float16, device=dev)
+    idx = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        with torch.inference_mode():
+            gather.gather_rows_cuda(f, idx)
+
+
+def test_knn_cuda_takes_bf16(dev):
+    rng = np.random.default_rng(7)
+    q, s = _on(dev, cloud(rng, 2, 300), cloud(rng, 2, 500))
+    q, s = q.to(torch.bfloat16), s.to(torch.bfloat16)
+    with torch.inference_mode():
+        got = topk_scan.knn_cuda(q, s, 9)
+        ref = topk_scan.knn_torch(q.float(), s.float(), 9)
+    _assert_same(got, ref)
+
+
+@pytest.mark.parametrize("features", [0, 16])
+def test_sample_and_group_sorted_cuda_matches_plain(dev, features):
+    """The sorted SA front half's kernels (K1 seeded, K2 on the original
+    order, K3) against the plain versions: all five outputs bitwise."""
+    from pytorch_points_tpu_torch.ops import sample_and_group_sorted
+
+    rng = np.random.default_rng(8)
+    xyz, f = _on(dev, cloud(rng, 4, 4096),
+                 rng.standard_normal((4, 4096, features)).astype(np.float32)
+                 if features else None)
+    with torch.inference_mode():
+        got = sample_and_group_sorted(xyz, f, 512, 32, 0.2, impl="cuda")
+        ref = sample_and_group_sorted(xyz, f, 512, 32, 0.2, impl="torch")
+    _assert_same(got, ref)
+
+
+def test_remat_batchnorm_step_on_card(dev):
+    """One remat step of the BatchNorm autoencoder on the kernels: loss,
+    grads (within K4's summation order) and running statistics equal to
+    one plain step's."""
+    b = {"points": _on(dev, cloud(np.random.default_rng(9), 4, 1024))[0]}
+    runs = []
+    for remat in (False, True):
+        torch.manual_seed(0)
+        model = PointCloudAutoencoder(128, 32, norm="batch", remat=remat)
+        step = make_train_step(model, torch.optim.SGD(model.parameters(), 0.0),
+                               reconstruction_loss(emd_weight=0.0))
+        loss = step(b).item()
+        runs.append((loss, [p.grad.clone() for p in model.parameters()],
+                     [t.clone() for t in model.buffers()]))
+    (l0, g0, s0), (l1, g1, s1) = runs
+    assert l0 == l1
+    for a, r in zip(g1, g0):
+        assert (a - r).abs().max() <= 1e-5 * max(r.abs().max().item(), 1e-12)
+    for a, r in zip(s1, s0):
+        assert torch.equal(a, r)
+
+
 @pytest.mark.parametrize("c", [4, 64])
 def test_gather_cuda_past_32_bit_offsets(dev, c):
     # B N C above 2^31: the 64-bit index instances, rows read past 2^31

@@ -157,5 +157,13 @@ def test_semseg_shares_the_autoencoders_fp_stack(semseg):
 
 
 def test_batch_norm_waits():
+    """norm="batch" builds flax's BatchNorm in every norm slot (held
+    against flax in test_torch_sorted_bn_bf16.py); an unknown norm still
+    raises."""
+    from pytorch_points_tpu_torch.layers.blocks import BatchNorm
+
+    model = PointNet2SemSeg(CLASSES, **SEG, norm="batch", device="cpu")
+    assert isinstance(model.encoder.sa1.mlp.norms[0], BatchNorm)
+    assert isinstance(model.head.norms[0], BatchNorm)
     with pytest.raises(ValueError, match="norm"):
-        PointNet2SemSeg(CLASSES, norm="batch", device="cpu")
+        PointNet2SemSeg(CLASSES, norm="group", device="cpu")
