@@ -200,7 +200,9 @@ Phases, in order; any failure raises and exits non-zero:
 20. DSS and geometry: ``batch_normals(x, 20)`` at B=4 N=2048 bitwise equal
    to plain; ``render_points`` at 128 x 128, EWA splats from those normals
    and isotropic splats, forward and backward to the points and normals,
-   within RENDER_TOL of the same call on the CPU; NormalLoss,
+   each output within RENDER_ULPS roundings of the depth (as the soft
+   z-buffer magnifies them) of the same call on the CPU, and the render at
+   a depth temperature 2^-10 off outside that bar; NormalLoss,
    PointEdgeLengthLoss and MeshEdgeLengthLoss equal to their plain
    versions; SmapeLoss, the two normalisations and
    ``voxel_downsample_mask`` equal to the CPU's within 1e-6.
@@ -315,7 +317,16 @@ STAT_TOL = 1e-6  # BatchNorm's running statistics, of their scale
 # the Neural Cages step (examples/deform_with_cage.py; models/cage_deformer)
 CAGES = dict(b=8, n=2048, subdivisions=1, radius=1.5)
 DSS = dict(b=4, n=2048, k=20, image=128)
-RENDER_TOL = 1e-5  # the card against the CPU, of each tensor's scale
+# render_points, the card against the CPU: each output within RENDER_ULPS
+# roundings of the depth, as the soft z-buffer magnifies them. Its softmax
+# over -depth / tau turns a relative rounding u = 2^-24 of a depth into a
+# relative change u depth / tau of that splat's weight (about 2.2e-5 at
+# tau = 1e-2 and depth 3.7), and the card's and the CPU's camera transforms
+# round their depths apart. The bar is RENDER_ULPS u max depth / tau of
+# each output's largest value; the same render at tau (1 + 2^-10) must miss
+# it (RENDER_PROBE), so every run shows the gate can fail.
+RENDER_ULPS = 4
+RENDER_PROBE = 2.0**-10
 MEASURED = {}  # numbers one phase prints beside another's
 
 KERNELS = {  # name -> (source, TPU kernel it replaces)
@@ -1858,28 +1869,64 @@ def grad_gap(got, ref):
     return worst
 
 
-def first_step_gate(torch, model, loss_of, what):
+def first_step_gate(torch, model, loss_of, what, tol=TRAIN_GRAD_TOL,
+                    ascending=False):
     """The first step's loss and parameter grads, kernels against plain
     versions (uncounted): ``loss_of(impl)`` computes the loss on one route.
-    The loss must agree within 1e-6 relative and every grad within
-    TRAIN_GRAD_TOL of its tensor's largest plain grad."""
-    first = {}
-    for impl in ("cuda", "torch"):
+    The model's buffers (BatchNorm's running statistics) are restored
+    before each route's forward. The loss must agree within 1e-6 relative
+    and every grad lie within ``tol`` of its tensor's largest plain grad.
+
+    With ``ascending`` the plain versions run a second time with ascending
+    sums (deterministic algorithms: ``index_add_`` sums each row in
+    ascending k, K4's order), and the kernels are held to that route; the
+    default route's distance from it, the spread that the summation order
+    causes, is printed beside. Where the order alone moves a grad by more
+    than ``tol`` (under bf16 rounding, or in a grad that cancels to
+    rounding noise, as a bias before a BatchNorm), only the ascending route
+    holds the kernels to the plain versions. Returns {route: (loss, grads,
+    buffers after the forward)} over the routes "kernels", "plain" and,
+    with ``ascending``, "ascending"."""
+    import warnings
+
+    routes = {}
+    start = [t.clone() for t in model.buffers()]
+    plans = [("kernels", "cuda", False), ("plain", "torch", False)]
+    if ascending:
+        plans.append(("ascending", "torch", True))
+    for label, impl, ordered in plans:
+        with torch.no_grad():
+            for t, s0 in zip(model.buffers(), start):
+                t.copy_(s0)
         model.zero_grad(set_to_none=True)
-        loss = loss_of(impl)
-        loss.backward()
-        first[impl] = (loss.item(), [p.grad.detach().clone()
-                                     for p in model.parameters()])
+        before = torch.are_deterministic_algorithms_enabled()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.use_deterministic_algorithms(ordered, warn_only=True)
+            try:
+                loss = loss_of(impl)
+                loss.backward()
+            finally:
+                torch.use_deterministic_algorithms(before)
+        routes[label] = (loss.item(), [p.grad.detach().clone()
+                                       for p in model.parameters()],
+                         [t.clone() for t in model.buffers()])
     model.zero_grad(set_to_none=True)
-    gap = grad_gap(first["cuda"][1], first["torch"][1])
-    print(f"first step: loss kernels {first['cuda'][0]!r} plain "
-          f"{first['torch'][0]!r}; parameter grads max |kernels - plain| / "
-          f"max |plain| = {gap!r} (bar {TRAIN_GRAD_TOL})")
-    if not np.isfinite(first["cuda"][0]) or gap > TRAIN_GRAD_TOL or abs(
-            first["cuda"][0] - first["torch"][0]) > 1e-6 * abs(
-                first["torch"][0]):
+    ref = "ascending" if ascending else "plain"
+    gap = grad_gap(routes["kernels"][1], routes[ref][1])
+    losses = {k: v[0] for k, v in routes.items()}
+    print(f"{what} first step: losses {losses}; parameter grads max "
+          f"|kernels - {ref}| / max |{ref}| = {gap!r} (bar {tol})" + (
+              "; the summation order's spread, max |plain (atomic sums) - "
+              f"plain (ascending)| / max = "
+              f"{grad_gap(routes['plain'][1], routes[ref][1])!r}"
+              if ascending else ""))
+    if (not np.isfinite(losses["kernels"]) or gap > tol
+            or abs(losses["kernels"] - losses[ref]) > 1e-6 * abs(
+                losses[ref])):
         fail(f"{what}: first-step loss or grads differ from the plain "
              "versions")
+    return routes
 
 
 def train_run(torch, dev, wrappers, required, label, step, batches):
@@ -2947,58 +2994,6 @@ def phase_sorted(torch, dev, wrappers):
             x, None, p, NSAMPLE, RADIUS1)}
 
 
-def ordered_first_step_gate(torch, model, loss_of, what, tol):
-    """The first step on three routes: the kernels; the plain versions with
-    ascending sums (deterministic algorithms: ``index_add_`` sums each row
-    in ascending k, K4's order); the plain versions with atomic sums. The
-    model's buffers (BatchNorm's running statistics) are restored before
-    each route's forward. The loss must agree within 1e-6 relative and the
-    kernels' grads lie within ``tol`` of the ascending plain grads, each of
-    its tensor's largest; the atomic route's distance from the ascending
-    one, the spread the summation order causes, is printed beside. Where
-    the order alone moves a grad by more than ``tol`` (under bf16
-    rounding, or in a grad that cancels to rounding noise, as a bias
-    before a BatchNorm), only this gate holds the kernels to the plain
-    versions. Returns {route: (loss, grads, buffers after the forward)}."""
-    import warnings
-
-    routes = {}
-    start = [t.clone() for t in model.buffers()]
-    for label, impl, ascending in (("kernels", "cuda", False),
-                                   ("ascending", "torch", True),
-                                   ("atomic", "torch", False)):
-        with torch.no_grad():
-            for t, s in zip(model.buffers(), start):
-                t.copy_(s)
-        model.zero_grad(set_to_none=True)
-        before = torch.are_deterministic_algorithms_enabled()
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            torch.use_deterministic_algorithms(ascending, warn_only=True)
-            try:
-                loss = loss_of(impl)
-                loss.backward()
-            finally:
-                torch.use_deterministic_algorithms(before)
-        routes[label] = (loss.item(), [p.grad.detach().clone()
-                                       for p in model.parameters()],
-                         [t.clone() for t in model.buffers()])
-    model.zero_grad(set_to_none=True)
-    gap = grad_gap(routes["kernels"][1], routes["ascending"][1])
-    spread = grad_gap(routes["atomic"][1], routes["ascending"][1])
-    losses = {k: v[0] for k, v in routes.items()}
-    print(f"{what} first step: losses {losses}; parameter grads max "
-          f"|kernels - plain (ascending sums)| / max |plain| = {gap!r} (bar "
-          f"{tol}); the summation order's spread, max |plain (atomic sums) "
-          f"- plain (ascending)| / max = {spread!r}")
-    if (not np.isfinite(losses["kernels"]) or gap > tol
-            or abs(losses["kernels"] - losses["ascending"])
-            > 1e-6 * abs(losses["ascending"])):
-        fail(f"{what}: first-step loss or grads differ from the plain "
-             "versions")
-    return routes
-
-
 def phase_config5b(torch, dev, wrappers):
     """Config 5b: config 5 (Chamfer + 0.1 EMD, pop cap 384, Adam 1e-3) on
     the autoencoder under the bf16 policy: bf16 features through the
@@ -3024,9 +3019,9 @@ def phase_config5b(torch, dev, wrappers):
     print(f"prediction dtype {pred.dtype} (the residual promotes the bf16 "
           f"offsets); parameters {model.head.layers[0].weight.dtype}")
     loss_fn = reconstruction_loss(emd_kwargs=CONFIG5_EMD)
-    ordered_first_step_gate(torch, model, lambda impl: reconstruction_loss(
+    first_step_gate(torch, model, lambda impl: reconstruction_loss(
         impl=impl, emd_kwargs=CONFIG5_EMD)(model, batches[0]), "config 5b",
-        BF16_GRAD_TOL)
+        BF16_GRAD_TOL, ascending=True)
     step = make_train_step(model, torch.optim.Adam(model.parameters(), 1e-3),
                            loss_fn)
     counts, median = train_run(
@@ -3128,10 +3123,10 @@ def phase_remat_bn(torch, dev, wrappers):
 
     print("-- (b) norm=\"batch\"")
     model = model_of(norm="batch")
-    first = ordered_first_step_gate(
+    first = first_step_gate(
         torch, model, lambda impl: reconstruction_loss(
             emd_weight=0, impl=impl)(model, batches[0]), "BatchNorm",
-        TRAIN_GRAD_TOL)
+        ascending=True)
     stat_gap = max(((g - r).abs().max() / r.abs().max().clamp_min(1e-30)
                     ).item() for g, r in zip(first["kernels"][2],
                                              first["ascending"][2]))
@@ -3248,13 +3243,72 @@ def phase_cages(torch, dev, wrappers):
                       lambda: step(batches[0]).item()}
 
 
+RENDER_OUTPUTS = ("image", "alpha", "grad xyz", "grad normals")
+RENDER_CAMERA = dict(eye=(1.5, 1.0, 2.5), focal=1.8)
+RENDER_TAU = 1e-2  # render_points' default depth temperature
+
+
+def dss_cloud(rng, b, n):
+    """[B,N,3] float32 points near a sphere of radius 0.6."""
+    x = rng.standard_normal((b, n, 3))
+    return (0.6 * x / np.linalg.norm(x, axis=-1, keepdims=True)
+            * (1 + 0.02 * rng.standard_normal((b, n, 1)))).astype(np.float32)
+
+
+def dss_scene(torch, rng, x, nrm, size):
+    """The render's inputs: the points and their normals, colours and the
+    image's weighting drawn from ``rng``, and the camera."""
+    from pytorch_points_tpu_torch import geo
+
+    b, n = x.shape[:2]
+    colors = torch.from_numpy(rng.uniform(0, 1, (b, n, 3)).astype(
+        np.float32)).to(x.device)
+    w = torch.from_numpy(rng.standard_normal((b, size, size, 3)).astype(
+        np.float32)).to(x.device)
+    return dict(xyz=x, normals=nrm, colors=colors, weights=w,
+                camera=geo.Camera(**RENDER_CAMERA), size=size)
+
+
+def render_scene(torch, scene, device, ewa, tau_scale=1.0):
+    """render_points on ``device`` (EWA splats from the scene's normals, or
+    isotropic), forward and backward of a fixed weighting of the image plus
+    the coverage: [image, alpha, grad xyz (, grad normals)]."""
+    from pytorch_points_tpu_torch import geo
+
+    xs = scene["xyz"].detach().to(device).requires_grad_(True)
+    ns = scene["normals"].detach().to(device).requires_grad_(True)
+    img, alpha = geo.render_points(
+        xs, scene["colors"].to(device), normals=ns if ewa else None,
+        camera=scene["camera"], image_size=scene["size"], splat_radius=0.02,
+        depth_temperature=RENDER_TAU * tau_scale,
+        backface="soft" if ewa else "none")
+    ((img * scene["weights"].to(device)).sum() + alpha.sum()).backward()
+    return [img, alpha, xs.grad] + ([ns.grad] if ewa else [])
+
+
+def render_gaps(got, ref):
+    """{output: max |got - ref| / max |ref|}, each output on its own
+    scale."""
+    return {name: ((g.detach().cpu() - r.detach().cpu()).abs().max()
+                   / r.detach().abs().max().clamp_min(1e-30)).item()
+            for name, g, r in zip(RENDER_OUTPUTS, got, ref)}
+
+
+def render_bar(scene):
+    """RENDER_ULPS roundings of the scene's largest depth, as the soft
+    z-buffer magnifies them (see RENDER_ULPS)."""
+    depth = scene["camera"].project(scene["xyz"])[1].max().item()
+    return RENDER_ULPS * 2.0**-24 * depth / RENDER_TAU
+
+
 def phase_dss(torch, dev, wrappers):
     """DSS and the geometry: batch_normals (K8, K3) equal to its plain
     versions; render_points with EWA splats from those normals and with
-    isotropic splats, forward and backward, within RENDER_TOL of the same
-    call on the CPU; the geometry losses and ops on the same clouds, held
-    to the plain versions (the CPU where an op has no kernel)."""
-    from pytorch_points_tpu_torch import geo
+    isotropic splats, forward and backward, each output within
+    RENDER_ULPS roundings of the depth of the same call on the CPU (and a
+    changed depth temperature outside them); the geometry losses and ops
+    on the same clouds, held to the plain versions (the CPU where an op
+    has no kernel)."""
     from pytorch_points_tpu_torch.losses import (
         MeshEdgeLengthLoss,
         NormalLoss,
@@ -3274,10 +3328,7 @@ def phase_dss(torch, dev, wrappers):
           f"render_points at {size}x{size} on B={b} N={n} clouds; the "
           "geometry losses and ops")
     rng = np.random.default_rng(SEED + 34)
-    x = rng.standard_normal((b, n, 3))
-    x = (0.6 * x / np.linalg.norm(x, axis=-1, keepdims=True)
-         * (1 + 0.02 * rng.standard_normal((b, n, 1)))).astype(np.float32)
-    x = torch.from_numpy(x).to(dev)
+    x = torch.from_numpy(dss_cloud(rng, b, n)).to(dev)
     launches, out = [], {}
     with torch.inference_mode():
         def normals():
@@ -3292,37 +3343,29 @@ def phase_dss(torch, dev, wrappers):
         print(f"batch_normals: {tuple(nrm.shape)}, equal to the plain "
               "versions bitwise")
     nrm = nrm.clone()  # a normal tensor: autograd may use it below
-    camera = geo.Camera(eye=(1.5, 1.0, 2.5), focal=1.8)
-    colors = torch.from_numpy(rng.uniform(0, 1, (b, n, 3)).astype(
-        np.float32)).to(dev)
-    w = torch.from_numpy(rng.standard_normal((b, size, size, 3)).astype(
-        np.float32)).to(dev)
-
-    def render(device, ewa):
-        xs = x.detach().to(device).requires_grad_(True)
-        ns = nrm.detach().to(device).requires_grad_(True)
-        img, alpha = geo.render_points(
-            xs, colors.to(device), normals=ns if ewa else None,
-            camera=camera, image_size=size, splat_radius=0.02,
-            backface="soft" if ewa else "none")
-        ((img * w.to(device)).sum() + alpha.sum()).backward()
-        return [img, alpha, xs.grad] + ([ns.grad] if ewa else [])
-
+    scene = dss_scene(torch, rng, x, nrm, size)
     for ewa in (True, False):
         kind = "EWA (normals)" if ewa else "isotropic"
-        got = render(dev, ewa)
-        ref = render("cpu", ewa)
-        gap = max(((g.detach().cpu() - r.detach()).abs().max()
-                   / r.detach().abs().max().clamp_min(1e-30)).item()
-                  for g, r in zip(got, ref, strict=True))
-        ms = median_ms(torch, lambda ewa=ewa: render(dev, ewa), 3)
-        print(f"render_points {kind}: image, alpha and grads to xyz"
-              f"{' and normals' if ewa else ''} max |card - CPU| / max |CPU|"
-              f" = {gap!r} (bar {RENDER_TOL}); coverage "
-              f"{got[1].mean().item()!r}; "
-              f"forward + backward {ms!r} ms (plain PyTorch)")
-        if gap > RENDER_TOL or not all(torch.isfinite(g).all() for g in got):
+        ref = render_scene(torch, scene, "cpu", ewa)
+        got = render_scene(torch, scene, dev, ewa)
+        gaps = render_gaps(got, ref)
+        bar = render_bar(scene)
+        probe = render_gaps(render_scene(torch, scene, dev, ewa,
+                                         1 + RENDER_PROBE), ref)
+        ms = median_ms(torch, lambda ewa=ewa: render_scene(
+            torch, scene, dev, ewa), 3)
+        print(f"render_points {kind}: max |card - CPU| / max |CPU| {gaps} "
+              f"(bar {bar!r}: {RENDER_ULPS} roundings of the depth through "
+              f"the soft z-buffer); at depth temperature x (1 + "
+              f"{RENDER_PROBE}) {probe} (must miss the bar); coverage "
+              f"{got[1].mean().item()!r}; forward + backward {ms!r} ms "
+              "(plain PyTorch)")
+        if (max(gaps.values()) > bar
+                or not all(torch.isfinite(g).all() for g in got)):
             fail(f"render_points ({kind}): the card differs from the CPU")
+        if max(probe.values()) <= bar:
+            fail(f"render_points ({kind}): the gate missed a change of "
+                 "the depth temperature")
 
     cv, cf = geometry_utils.generate_icosphere(2)
     edges = geometry_utils.mesh_edges(cf)
@@ -3375,7 +3418,7 @@ def phase_dss(torch, dev, wrappers):
                 fail(f"{name}: the card differs from the CPU")
     return launches, {
         f"render_points EWA fwd+bwd B={b} N={n} {size}x{size}":
-            lambda: render(dev, True),
+            lambda: render_scene(torch, scene, dev, True),
         f"batch_normals B={b} N={n} k={k}": lambda: batch_normals(x, k)}
 
 

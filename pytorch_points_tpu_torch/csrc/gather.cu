@@ -11,16 +11,18 @@
 // channel count, not only the reference's C <= 16.
 //
 // On the card it is bound by device-memory bytes (4 + s C read and s C
-// written per row, s = 4 bytes an element for float32, 2 for bfloat16). The design keeps the per-element work to the copy:
-//  * C <= 4: a warp takes 32 consecutive rows of one cloud, loads their 32
-//    indices in one coalesced load, and copies the 32 C values lane by lane
-//    (the row of value j is j / C, C a compile-time constant, its index
-//    shuffled from the lane that loaded it), so the stores are contiguous;
-//  * larger C: tpr threads a row (tpr a power of two up to 32), each row's
+// written per row, s = 4 bytes an element for float32, 2 for bfloat16).
+// The design keeps the per-element work to the copy:
+//  * float32 C <= 4: a warp takes 32 consecutive rows of one cloud, loads
+//    their 32 indices in one coalesced load, and copies the 32 C values
+//    lane by lane (the row of value j is j / C, C a compile-time constant,
+//    its index shuffled from the lane that loaded it), so the stores are
+//    contiguous;
+//  * other rows: tpr threads a row (tpr a power of two up to 32), each row's
 //    index loaded once, 16-byte vectors where a row is a whole number of
 //    them and the rows are 16-byte aligned (C = 128 at sa2 and fp: 32
-//    float4 a row in float32, 16 in bfloat16), else 4-byte words for an
-//    even bfloat16 C;
+//    float4 a row in float32, 16 in bfloat16), else element by element
+//    (the bf16 paths give C = 128 and 256 only);
 //  * a block covers a tile of rows of one cloud (one division per thread
 //    finds it), and index arithmetic is 32-bit unless B N C or B K C
 //    reaches 2^31.
@@ -32,14 +34,13 @@ namespace {
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
-// C <= 4, E the element (float, or unsigned short for a bfloat16). Block
-// `blockIdx.x` is tile t of cloud b (tiles = blocks a cloud), kThreads rows
-// a tile, 32 rows a warp.
-template <int C, typename E, typename Index>
+// C <= 4 (float32 rows). Block `blockIdx.x` is tile t of cloud b (tiles =
+// blocks a cloud), kThreads rows a tile, 32 rows a warp.
+template <int C, typename Index>
 __global__ void __launch_bounds__(kThreads)
-    gather_narrow_kernel(const E* __restrict__ f,
+    gather_narrow_kernel(const float* __restrict__ f,
                          const int* __restrict__ idx, int n, int k, int tiles,
-                         E* __restrict__ out) {
+                         float* __restrict__ out) {
   const int b = blockIdx.x / tiles;
   const int tile = blockIdx.x - b * tiles;
   const int lane = threadIdx.x & 31;
@@ -48,8 +49,8 @@ __global__ void __launch_bounds__(kThreads)
   const int rows = min(32, k - row0);
   const Index first = static_cast<Index>(b) * k + row0;
   const int src = lane < rows ? idx[first + lane] : 0;
-  const E* fb = f + static_cast<Index>(b) * n * C;
-  E* dst = out + first * C;
+  const float* fb = f + static_cast<Index>(b) * n * C;
+  float* dst = out + first * C;
 #pragma unroll
   for (int j = lane; j < 32 * C; j += 32) {
     const int r = j / C;
@@ -58,9 +59,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// T: the unit of the copy (float or float4 for float32 rows; unsigned short,
-// unsigned int or uint4 for bfloat16 rows), cv = units of T in a row. Block `blockIdx.x` is tile
-// t of cloud b (tiles = blocks a cloud), kThreads >> log_tpr rows a tile.
+// T: the unit of the copy (float or float4 for float32 rows; unsigned short
+// or uint4 for bfloat16 rows), cv = units of T in a row. Block `blockIdx.x`
+// is tile t of cloud b (tiles = blocks a cloud), kThreads >> log_tpr rows a
+// tile.
 template <typename T, typename Index>
 __global__ void __launch_bounds__(kThreads)
     gather_rows_kernel(const T* __restrict__ f, const int* __restrict__ idx,
@@ -81,18 +83,18 @@ bool fits_32_bit(int b, int n, int k, int c) {
   return static_cast<long long>(b) * (n > k ? n : k) * c < (1LL << 31);
 }
 
-template <int C, typename E>
-cudaError_t launch_narrow(const E* f, const int* idx, int b, int n, int k,
-                          E* out, cudaStream_t stream) {
+template <int C>
+cudaError_t launch_narrow(const float* f, const int* idx, int b, int n, int k,
+                          float* out, cudaStream_t stream) {
   const int tiles = (k + kThreads - 1) / kThreads;
   const long long blocks = static_cast<long long>(b) * tiles;
   if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
   if (fits_32_bit(b, n, k, C)) {
-    gather_narrow_kernel<C, E, int><<<static_cast<unsigned>(blocks), kThreads,
-                                      0, stream>>>(f, idx, n, k, tiles, out);
+    gather_narrow_kernel<C, int><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                   stream>>>(f, idx, n, k, tiles, out);
   } else {
-    gather_narrow_kernel<C, E, long long><<<static_cast<unsigned>(blocks),
-                                            kThreads, 0, stream>>>(
+    gather_narrow_kernel<C, long long><<<static_cast<unsigned>(blocks),
+                                         kThreads, 0, stream>>>(
         f, idx, n, k, tiles, out);
   }
   return cudaGetLastError();
@@ -154,20 +156,9 @@ extern "C" int ppt_gather_rows_bf16(const void* features, const int* idx,
   using E = unsigned short;
   if (b < 0 || n < 0 || k < 0 || c < 0) return cudaErrorInvalidValue;
   if (b == 0 || k == 0 || c == 0) return cudaSuccess;
-  const E* f = static_cast<const E*>(features);
-  E* o = static_cast<E*>(out);
-  switch (c) {
-    case 1: return launch_narrow<1>(f, idx, b, n, k, o, stream);
-    case 2: return launch_narrow<2>(f, idx, b, n, k, o, stream);
-    case 3: return launch_narrow<3>(f, idx, b, n, k, o, stream);
-    case 4: return launch_narrow<4>(f, idx, b, n, k, o, stream);
-    default: break;
-  }
   if (c % 8 == 0 && aligned(features, out, 16))
     return launch(static_cast<const uint4*>(features), idx, b, n, k, c / 8,
                   c, static_cast<uint4*>(out), stream);
-  if (c % 2 == 0 && aligned(features, out, 4))
-    return launch(static_cast<const unsigned*>(features), idx, b, n, k,
-                  c / 2, c, static_cast<unsigned*>(out), stream);
-  return launch(f, idx, b, n, k, c, c, o, stream);
+  return launch(static_cast<const E*>(features), idx, b, n, k, c, c,
+                static_cast<E*>(out), stream);
 }

@@ -72,13 +72,7 @@ def knn_torch(query: torch.Tensor, support: torch.Tensor, k: int):
 
 def knn_cuda(query: torch.Tensor, support: torch.Tensor, k: int):
     """Launch the CUDA kernel: same contract as :func:`knn_torch`, any C,
-    1 <= k <= Ns, one pass for every k. bfloat16 clouds are cast to float32
-    first, as the reference's Pallas scans cast theirs (exact: the indices
-    are those of a float32 call on the cast values)."""
-    if query.dtype == torch.bfloat16:
-        query = query.to(torch.float32)
-    if support.dtype == torch.bfloat16:
-        support = support.to(torch.float32)
+    1 <= k <= Ns, one pass for every k."""
     b, nq, c = query.shape
     ns = support.shape[1]
     _build.require(query, "knn query", torch.float32, (b, nq, c))
