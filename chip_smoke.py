@@ -210,11 +210,30 @@ Phases, in order; any failure raises and exits non-zero:
 Phase 2 also holds the gather's bf16 instance bitwise to its plain version
 at the bf16 paths' shapes (SA2's group, the FP stages' gathers).
 
-Phases 3-20 are the main paths. Each sets every kernel's launch count to 0
+21. parallel (``parallel/``): world 1 over NCCL in this process, then 2
+   ranks of this script (``--parallel-rank``) sharing cuda:0 over gloo,
+   the only way one card runs the cross-rank combine. Each runs, on its
+   shards: ``nndistance_sharded`` (K13) and ``nndistance_ring`` (K5) at
+   B=32 N=M=16384, indices and distances bitwise equal to K5 on the whole
+   clouds; ``chamfer_sharded`` forward and backward, loss and grads within
+   HEAD_GRAD_TOL of the one-device chamfer's; ``sample_and_group_sharded``
+   (FPS 16384 -> 2048, r=0.2, ns=32), every output bitwise equal to
+   ``ops.sample_and_group``'s; ``earth_mover_distance_sharded`` forward and
+   backward at config 4's shapes, a permutation with its matched
+   distances, its iterations and greedy-completion steps, and (printed)
+   its excess over the Hungarian optimum beside the one-device EMD's and
+   the share of its assignment equal to world 1's; config 5's step with
+   ``mesh`` (B=16, 8 a rank on 2 ranks), loss, averaged grads and the
+   parameters after the step within TRAIN_GRAD_TOL of the one-device
+   step's. Each op's ms beside its one-device counterpart's (CUDA events,
+   the same number of calls on every rank), and the phase's seconds. The
+   ranks' launch counts add to the main paths'.
+
+Phases 3-21 are the main paths. Each sets every kernel's launch count to 0
 just before each of its runs and reads them just after, and fails if a
 kernel of that run's path was never launched.
 
-21. profile: one call of each main path, traced with torch.profiler after
+22. profile: one call of each main path, traced with torch.profiler after
    its untraced timing: wall ms, device busy ms and idle share per call,
    the largest device items and the port's kernels among the rest; for
    config 6 and 6m also the glue around the ring kernels (its device items
@@ -3422,6 +3441,355 @@ def phase_dss(torch, dev, wrappers):
         f"batch_normals B={b} N={n} k={k}": lambda: batch_normals(x, k)}
 
 
+PARALLEL = dict(b=32, n=16384, p=2048, ns=32, r=0.2)  # the headline's
+PARALLEL_RANKS = 2  # ranks sharing cuda:0 over gloo
+PARALLEL_TIMEOUT = 300  # s: the ranks' deadline
+PARALLEL_PG_TIMEOUT = 120  # s: a collective's, so a failed rank ends the run
+PARALLEL_CALLS = 3  # timed calls of an op with collectives (a fixed count:
+# every rank must make the same calls)
+
+
+def fixed_ms(torch, fn, calls=PARALLEL_CALLS):
+    """Mean ms of ``calls`` calls after one warm-up call, on CUDA events:
+    the same number of calls on every rank, unlike :func:`cuda_ms`."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def parallel_cases(torch, dev, wrappers, mesh, dmesh, tag):
+    """The sharded ops and the data-parallel config-5 step on this rank's
+    shards (the points axis of ``mesh``, the data axis of ``dmesh``), each
+    held to its one-device counterpart on the same card: the NN (K13) and
+    the ring (K5) bitwise equal to K5, the chamfer's value and grads within
+    the smoke's grad bar of the one-device chamfer's, sample_and_group's
+    outputs bitwise equal to ``ops.sample_and_group``'s, the sharded EMD a
+    permutation with its matched distances, the step's loss, averaged
+    grads and parameters within the grad bar of the one-device step's.
+    Returns (launches of each driven run, figures for the printout)."""
+    from pytorch_points_tpu_torch import parallel
+    from pytorch_points_tpu_torch.kernels import distance_tiles
+    from pytorch_points_tpu_torch.models import PointCloudAutoencoder
+    from pytorch_points_tpu_torch.ops import (
+        chamfer_distance,
+        earth_mover_distance,
+        sample_and_group,
+    )
+
+    group = mesh.get_group("points")
+    w, r = group.size(), group.rank()
+    b, n, npoint = PARALLEL["b"], PARALLEL["n"], PARALLEL["p"]
+    m = n // w
+    sl = slice(r * m, (r + 1) * m)
+    rng = np.random.default_rng(SEED + 40)
+    p = torch.from_numpy(cloud(rng, b, n)).to(dev)
+    q = torch.from_numpy(cloud(rng, b, n)).to(dev)
+    q_loc = q[:, sl].contiguous()
+    launches, fig = [], {}
+    k13 = distance_tiles.nn_one_direction_cuda
+
+    def sync_run(key, fn, timed=None):
+        """The driven run: its outputs in ``fig[key]``; with ``timed`` its
+        host ms to a sync in ``fig[timed]`` (the slow ops' one call)."""
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fig[key] = fn()
+            torch.cuda.synchronize()
+            if timed:
+                fig[timed] = (time.perf_counter() - t0) * 1e3
+        return run
+
+    # the NN with q sharded (K13) and the ring (K5) against K5 whole
+    ref = distance_tiles.nn_both_directions(p, q)
+    launches.append(drive(wrappers, ("nn_dense",), f"{tag} nndistance_sharded",
+                          sync_run("nn", lambda: parallel.nndistance_sharded(
+                              p, q_loc, mesh))))
+    fig["K13 launches"] = k13.launches
+    want = (ref[0], ref[1], ref[2][:, sl], ref[3][:, sl])
+    if not all(torch.equal(g, x) for g, x in zip(fig.pop("nn"), want)):
+        fail(f"{tag}: nndistance_sharded differs from the one-device K5")
+    fig["nndistance_sharded ms"] = fixed_ms(
+        torch, lambda: parallel.nndistance_sharded(p, q_loc, mesh))
+    fig["K5 one-device ms"] = fixed_ms(
+        torch, lambda: distance_tiles.nn_both_directions(p, q))
+    p_loc = p[:, sl].contiguous()
+    launches.append(drive(wrappers, ("nn_dense",), f"{tag} nndistance_ring",
+                          sync_run("ring", lambda: parallel.nndistance_ring(
+                              p_loc, q_loc, mesh))))
+    want = (ref[0][:, sl], ref[1][:, sl], ref[2][:, sl], ref[3][:, sl])
+    if not all(torch.equal(g, x) for g, x in zip(fig.pop("ring"), want)):
+        fail(f"{tag}: nndistance_ring differs from the one-device K5")
+    fig["nndistance_ring ms"] = fixed_ms(
+        torch, lambda: parallel.nndistance_ring(p_loc, q_loc, mesh))
+
+    # the chamfer, forward and backward, against the one-device chamfer
+    def chamfer(sharded):
+        pg = p.clone().requires_grad_()
+        qg = (q_loc if sharded else q).clone().requires_grad_()
+        loss = (parallel.chamfer_sharded(pg, qg, mesh) if sharded
+                else chamfer_distance(pg, qg))
+        loss.backward()
+        return loss.detach(), pg.grad, qg.grad
+
+    launches.append(drive(wrappers, ("nn_dense", "gather", "scatter"),
+                          f"{tag} chamfer_sharded forward and backward",
+                          sync_run("chamfer", lambda: chamfer(True))))
+    got, one = fig.pop("chamfer"), chamfer(False)
+    gap = grad_gap(got[1:], (one[1], one[2][:, sl]))
+    loss_gap = abs(got[0].item() - one[0].item()) / abs(one[0].item())
+    fig["chamfer loss rel gap"], fig["chamfer grad gap"] = loss_gap, gap
+    if gap > HEAD_GRAD_TOL or loss_gap > HEAD_GRAD_TOL:
+        fail(f"{tag}: chamfer_sharded's loss or grads differ from the "
+             "one-device chamfer's")
+    fig["chamfer_sharded fwd+bwd ms"] = fixed_ms(torch, lambda: chamfer(True))
+    fig["chamfer one-device fwd+bwd ms"] = fixed_ms(
+        torch, lambda: chamfer(False))
+
+    # the SA front half: FPS sharded, then the query stages on the slice
+    # of the centroids
+    nsample, radius = PARALLEL["ns"], PARALLEL["r"]
+    x_loc = p[:, sl].contiguous()
+    launches.append(drive(
+        wrappers, ("ball_query", "gather"),
+        f"{tag} sample_and_group_sharded {n} -> {npoint}",
+        sync_run("sag", lambda: parallel.sample_and_group_sharded(
+            x_loc, None, npoint, nsample, radius, mesh),
+            "sample_and_group_sharded ms (one call, host clock)")))
+    one = sample_and_group(p, None, npoint, nsample, radius)
+    ps = slice(r * npoint // w, (r + 1) * npoint // w)
+    want = (one[0], one[1][:, ps], one[2][:, ps], one[3][:, ps])
+    if not all(torch.equal(g, x) for g, x in zip(fig.pop("sag"), want)):
+        fail(f"{tag}: sample_and_group_sharded differs from "
+             "ops.sample_and_group")
+    fig["sample_and_group one-device ms"] = fixed_ms(
+        torch, lambda: sample_and_group(p, None, npoint, nsample, radius))
+
+    # the sharded auction EMD at config 4's shapes, forward and backward
+    ep, eq = config4_clouds(torch, dev)
+    em = ep.shape[1] // w
+    eq_loc = eq[:, r * em:(r + 1) * em].contiguous()
+
+    def emd():
+        pg = ep.clone().requires_grad_()
+        dist, assign = parallel.earth_mover_distance_sharded(pg, eq_loc, mesh)
+        dist.mean().backward()
+        return dist.detach(), assign
+
+    emd_ms = "EMD sharded fwd+bwd ms (one call, host clock)"
+    launches.append(drive(wrappers, ("scatter",),
+                          f"{tag} earth_mover_distance_sharded",
+                          sync_run("emd", emd, emd_ms)))
+    dist, assign = fig.pop("emd")
+    check_assignment(torch, f"{tag} EMD sharded", ep, eq, dist, assign)
+    fig["EMD sharded stats"] = dict(
+        parallel.earth_mover_distance_sharded.stats)
+    fig["EMD sharded mean d2"] = dist.double().mean(1)[:EMD_ORACLE].tolist()
+    fig["EMD sharded assign"] = assign
+
+    def emd_one():
+        pg = ep.clone().requires_grad_()
+        earth_mover_distance(pg, eq)[0].mean().backward()
+
+    fig["EMD one-device fwd+bwd ms"] = fixed_ms(torch, emd_one)
+
+    # config 5's step, data-parallel over dmesh against the one-device step
+    dw, dr = dmesh.get_group("data").size(), dmesh.get_group("data").rank()
+    sb, sn = SLICE["b"], SLICE["n"]
+    batch = torch.from_numpy(cloud(np.random.default_rng(SEED + 41), sb,
+                                   sn)).to(dev)
+    shard = {"points": batch[dr * sb // dw:(dr + 1) * sb // dw]}
+    models, steps = [], []
+    for mesh_ in (None, dmesh):
+        model = PointCloudAutoencoder(NPOINT1, NPOINT2, device=dev,
+                                      generator=torch.Generator().manual_seed(
+                                          SEED))
+        models.append(model)
+        steps.append(parallel.make_train_step(
+            model, torch.optim.Adam(model.parameters(), 1e-3),
+            parallel.reconstruction_loss(emd_kwargs=CONFIG5_EMD), mesh=mesh_))
+    loss_one = steps[0]({"points": batch}).item()
+    launches.append(drive(
+        wrappers, (*TRAIN_KERNELS, *EMD_KERNELS),
+        f"{tag} data-parallel config 5 step, B={sb // dw} a rank",
+        sync_run("step", lambda: steps[1](shard).item())))
+    loss_dp = fig.pop("step")
+    grads = [[t.grad for t in mod.parameters()] for mod in models]
+    params = [list(mod.parameters()) for mod in models]
+    fig["step loss"] = (loss_dp, loss_one)
+    fig["step grad gap"] = grad_gap(grads[1], grads[0])
+    fig["step param gap"] = grad_gap(params[1], params[0])
+    if (abs(loss_dp - loss_one) > TRAIN_GRAD_TOL * abs(loss_one)
+            or fig["step grad gap"] > TRAIN_GRAD_TOL
+            or fig["step param gap"] > TRAIN_GRAD_TOL):
+        fail(f"{tag}: the data-parallel step differs from the one-device "
+             "step")
+    fig["step data-parallel ms"] = fixed_ms(torch, lambda: steps[1](shard))
+    fig["step one-device ms"] = fixed_ms(
+        torch, lambda: steps[0]({"points": batch}))
+    return launches, fig
+
+
+def print_figures(tag, fig):
+    for key, value in fig.items():
+        if key != "EMD sharded assign":
+            print(f"{tag}: {key} {value!r}")
+
+
+def parallel_rank(rank: int, world: int, store: str, out: str) -> int:
+    """One of the phase's gloo ranks on cuda:0 (``chip_smoke.py
+    --parallel-rank``): its cases, then its launch counts and figures as
+    JSON in ``out``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    _, wrappers = import_port()
+    from pytorch_points_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, world), rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=PARALLEL_PG_TIMEOUT))
+    try:
+        mesh = make_mesh({"points": world})
+        dmesh = make_mesh({"data": world})
+        launches, fig = parallel_cases(torch, dev, wrappers, mesh, dmesh,
+                                       f"gloo rank {rank}/{world}")
+        fig["EMD sharded assign"] = fig["EMD sharded assign"].cpu().tolist()
+    finally:
+        dist.destroy_process_group()
+    with open(out, "w") as fh:
+        json.dump({"launches": launches, "fig": fig}, fh)
+    return 0
+
+
+def run_ranks(world: int, work: Path):
+    """Start ``world`` ranks of this script on gloo; wait for them within
+    PARALLEL_TIMEOUT, killing every one past it or when one fails; echo
+    their output. Returns each rank's JSON."""
+    store = work / "gloo_store"
+    procs, logs = [], []
+    for rank in range(world):
+        logs.append(work / f"rank{rank}.log")
+        with open(logs[-1], "wb") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--parallel-rank", str(rank), str(world), str(store),
+                 str(work / f"rank{rank}.json")],
+                stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT)))
+    end = time.perf_counter() + PARALLEL_TIMEOUT
+    try:
+        while time.perf_counter() < end and any(
+                proc.poll() is None for proc in procs):
+            if any(proc.poll() for proc in procs):  # one failed: stop all
+                break
+            time.sleep(0.2)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank, log in enumerate(logs):
+        for line in log.read_text(errors="replace").splitlines():
+            print(f"[rank {rank}] {line}")
+    codes = [proc.returncode for proc in procs]
+    if any(codes):
+        fail(f"parallel: the gloo ranks exited with {codes}")
+    return [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def phase_parallel(torch, dev, wrappers):
+    """World 1 over NCCL in this process at full width, then
+    PARALLEL_RANKS ranks sharing cuda:0 over gloo (the only way one card
+    runs the cross-rank combine: shard offsets, ties across ranks, the
+    ring's rotation), each rank's cases held to the one-device ops."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+    from scipy.optimize import linear_sum_assignment
+
+    from pytorch_points_tpu_torch import parallel
+    from pytorch_points_tpu_torch.ops import earth_mover_distance
+
+    t0 = time.perf_counter()
+    print(f"== phase 21: parallel, the sharded ops at B={PARALLEL['b']} "
+          f"N=M={PARALLEL['n']} (sample_and_group {PARALLEL['n']} -> "
+          f"{PARALLEL['p']}), config 4's EMD and config 5's data-parallel "
+          f"step; world 1 over NCCL, then {PARALLEL_RANKS} ranks on cuda:0 "
+          "over gloo; card: " + card_line())
+    print("gloo on CUDA tensors: all_gather_into_tensor, all_reduce, "
+          "broadcast and barrier take them; send/recv do not (gloo writes "
+          "the device pointer to its socket), so collectives.ring_shift "
+          "stages through host memory on a gloo group; NCCL takes every one")
+    work = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(work / "nccl_store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=PARALLEL_PG_TIMEOUT))
+    try:
+        mesh = parallel.make_mesh({"points": 1})
+        dmesh = parallel.make_mesh({"data": 1})
+        launches, fig = parallel_cases(torch, dev, wrappers, mesh, dmesh,
+                                       "nccl world 1")
+        rng = np.random.default_rng(SEED + 40)  # parallel_cases' clouds
+        p, q = (torch.from_numpy(cloud(rng, PARALLEL["b"],
+                                       PARALLEL["n"])).to(dev)
+                for _ in range(2))
+        # K13's device time on this path (uncounted, as phase 22's)
+        profile_path(torch, "nndistance_sharded, nccl world 1", lambda: (
+            parallel.nndistance_sharded(p, q, mesh)[0].sum().item()))
+    finally:
+        dist.destroy_process_group()
+    print_figures("nccl world 1", fig)
+    assign1 = fig["EMD sharded assign"]
+    ep, eq = config4_clouds(torch, dev)
+    one_dist, _ = earth_mover_distance(ep, eq)
+    opt = []
+    pa, qa = ep.cpu().double().numpy(), eq.cpu().double().numpy()
+    for bi in range(EMD_ORACLE):
+        d2 = ((pa[bi, :, None, :] - qa[bi, None, :, :]) ** 2).sum(-1)
+        rows, cols = linear_sum_assignment(d2)
+        opt.append(d2[rows, cols].mean())
+
+    def excess(means):
+        return [float(100.0 * (g - o) / o) for g, o in zip(means, opt)]
+
+    print(f"EMD excess over the Hungarian optimum, config 4's first "
+          f"{EMD_ORACLE} elements: sharded (flat eps 0.005, 45 iterations, "
+          f"greedy completion) {excess(fig['EMD sharded mean d2'])}%; "
+          "one-device (K11 + K12, pop cap 768) "
+          f"{excess(one_dist.double().mean(1)[:EMD_ORACLE].tolist())}%")
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # room for the ranks' own caches
+    ranks = run_ranks(PARALLEL_RANKS, work)
+    for rank, res in enumerate(ranks):
+        launches += res["launches"]
+        tag = f"gloo rank {rank}/{PARALLEL_RANKS}"
+        print_figures(tag, res["fig"])
+        print(f"{tag}: EMD excess over the Hungarian optimum "
+              f"{excess(res['fig']['EMD sharded mean d2'])}%")
+        same = (torch.tensor(res["fig"]["EMD sharded assign"], device=dev)
+                == assign1).double().mean().item()
+        print(f"{tag}: share of the EMD assignment equal to world 1's "
+              f"{same!r}")
+    print(f"phase 21 took {time.perf_counter() - t0!r} s")
+    return launches, {}
+
+
 # How the port's kernels show in a trace: every kernel of csrc/ lives in an
 # anonymous namespace at the top level (PyTorch's own sit under at::).
 PORT_ITEMS = ("(anonymous namespace)::", "void (anonymous namespace)::")
@@ -3544,6 +3912,9 @@ def import_port():
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        return parallel_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                             sys.argv[5])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -3579,11 +3950,11 @@ def main() -> int:
                   functools.partial(phase_headline, masked=True),
                   phase_fused, phase_pruned, phase_upsampler, phase_semseg,
                   phase_config10, phase_sorted, phase_config5b,
-                  phase_remat_bn, phase_cages, phase_dss):
+                  phase_remat_bn, phase_cages, phase_dss, phase_parallel):
         counts, fns = phase(torch, dev, wrappers)
         paths += counts
         calls.update(fns)
-    print("== phase 21: profile one call of each main path")
+    print("== phase 22: profile one call of each main path")
     for label, fn in calls.items():
         profile_path(torch, label, fn)
 

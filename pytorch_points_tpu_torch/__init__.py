@@ -20,8 +20,12 @@ operators, mean value coordinates and differentiable splatting. The host
 side: ``data`` (PLY dataset, bucketed batcher, prefetcher,
 augmentation), ``utils`` (I/O, checkpoints, Trainer, timing, profiling,
 export), ``misc`` (the logger) and ``_native`` (the C++ host library,
-built with g++ at first use). Not ported yet: ``compat.torch_bridge`` and
-``parallel/`` beyond the one-device step.
+built with g++ at first use). ``compat`` has the reference's
+channels-first wrappers, the torch bridge and ``load_jax_params``;
+``parallel`` the mesh, the data-parallel step and the point-sharded ops
+on ``torch.distributed``. Every module of the JAX package has its
+counterpart here, except its XLA fallback of the EMD (``_auction_xla``)
+and the bridge's ``to_jax``/``from_jax``.
 This package imports ``torch`` and never ``jax``, ``flax`` or
 ``pytorch_points_tpu``.
 """

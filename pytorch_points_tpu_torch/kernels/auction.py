@@ -454,11 +454,18 @@ def auction_assignment(p, q, eps: float, max_iters: int, ti: int = 256,
                        phases: int = 1, scale: float = 6.0,
                        pop_cap: int = 768, budgets: tuple = (),
                        auto_budget: bool = True, warm_start: bool = True,
-                       impl: str = "auto"):
+                       counts_equal: bool = True, impl: str = "auto"):
     """[B,N,3] x2 -> person -> object assignment [B,N] int32 (a
     permutation): K11 with eps-scaling over ``phases`` (``max_iters`` per
     phase unless ``budgets`` says otherwise), K12 for its stragglers at the
     final eps, then the greedy backstop.
+
+    ``counts_equal`` says that no person can be left holding an alignment
+    pad past N: the clouds carry no poison pads, or as many in each. The
+    endgame then gives every person a real object while its cap cannot
+    bind, and the backstop (with its host sync) is skipped. ``False`` (the
+    masked EMD with unequal valid counts) always runs it, as the
+    reference does.
 
     With ``auto_budget`` (and no ``budgets``, ``phases >= 2``) the hardness
     hint picks between the default ladder and the generous one (40, 25,
@@ -478,10 +485,12 @@ def auction_assignment(p, q, eps: float, max_iters: int, ti: int = 256,
     owner, _ = _residual_rounds(owner, price, pp, qp, eps, pop_cap,
                                 impl=impl)
     # The endgame gives every straggler it takes an object (a free one is
-    # always reachable), so persons are left over only past its cap.
+    # always reachable), so with equal counts persons are left over only
+    # past its cap; unpaired poison pads may end on alignment pads.
     n_pad = owner.shape[1]
-    return _invert_and_complete(owner, pp, qp, n,
-                                n_pad > MAX_ROUNDS * min(S_MAX, n_pad))
+    return _invert_and_complete(
+        owner, pp, qp, n,
+        not counts_equal or n_pad > MAX_ROUNDS * min(S_MAX, n_pad))
 
 
 def auction_unassigned_count(p, q, eps: float, max_iters: int, ti: int = 256,

@@ -36,10 +36,12 @@ class _EMD(torch.autograd.Function):
     gq = scatter_add(assign, -gp)."""
 
     @staticmethod
-    def forward(ctx, p, q, eps, max_iters, phases, pop_cap, impl):
+    def forward(ctx, p, q, eps, max_iters, phases, pop_cap, impl,
+                counts_equal):
         p, q = p.detach(), q.detach()
         assign = auction.auction_assignment(p, q, eps, max_iters,
                                             phases=phases, pop_cap=pop_cap,
+                                            counts_equal=counts_equal,
                                             impl=impl)
         dist, diff = _matched(p, q, assign)
         ctx.save_for_backward(assign, diff)
@@ -54,18 +56,21 @@ class _EMD(torch.autograd.Function):
         gq = None
         if ctx.needs_input_grad[1]:  # a train step's target needs none
             gq = scatter_add_auto(assign, -gp, diff.shape[1], ctx.impl)
-        return gp, gq, None, None, None, None, None
+        return gp, gq, None, None, None, None, None, None
 
 
-def _poison_rank_matched(x, mask):
+def _poison_rank_matched(x, mask, first=None):
     """Replace invalid points with twin pads shared BY RANK between the two
     clouds: the r-th invalid slot of p and the r-th invalid slot of q get
     identical far-away coordinates (x = BIG_COORD*16 + 32r), so the auction
     matches pad r to pad r at distance 0 and the valid assignment is
-    undisturbed. Disjoint from the auction's own alignment pads."""
+    undisturbed. Disjoint from the auction's own alignment pads. ``first``
+    ([B] int, for a shard of a cloud): the invalid slots before it."""
     if mask is None:
         return x
     r = torch.cumsum((~mask).to(torch.int32), 1) - 1
+    if first is not None:
+        r = r + first[:, None].to(torch.int32)
     poison = torch.zeros_like(x)
     poison[..., 0] = BIG_COORD * 16.0 + 32.0 * r.to(x.dtype)
     return torch.where(mask[..., None], x, poison)
@@ -92,6 +97,9 @@ def earth_mover_distance(p: torch.Tensor, q: torch.Tensor,
         have EQUAL VALID COUNTS per cloud (EMD is a 1-to-1 matching);
         invalid slots are rank-matched to each other at distance 0, so they
         add nothing to cost or gradient; masked outputs are (0, 0).
+        Unequal counts get the reference's answer (the greedy backstop
+        gives each person left on a pad a free real object), at the cost
+        of one host sync; two distinct masks always pay that sync.
 
     Returns:
       (dist [B, N] squared distances along the matched pairs,
@@ -105,9 +113,12 @@ def earth_mover_distance(p: torch.Tensor, q: torch.Tensor,
     args = (float(eps), int(max_iters), int(phases), int(endgame_pop_cap),
             impl)
     if p_mask is None and q_mask is None:
-        return _EMD.apply(p, q, *args)
+        return _EMD.apply(p, q, *args, True)
+    # Only one mask for both clouds promises equal valid counts without a
+    # look at the data; otherwise the auction runs its greedy backstop.
     dist, assign = _EMD.apply(_poison_rank_matched(p, p_mask),
-                              _poison_rank_matched(q, q_mask), *args)
+                              _poison_rank_matched(q, q_mask), *args,
+                              p_mask is q_mask)
     if p_mask is not None:
         dist = torch.where(p_mask, dist, 0.0)
         assign = torch.where(p_mask, assign, 0)

@@ -1,12 +1,15 @@
-"""Training loop (counterpart of the JAX ``utils/trainer.py``): the
-one-device step (``parallel.make_train_step``), tolerant checkpointing
-(save/load_network), a NaN guard (check_values) and the coloured logger.
+"""Training loop (counterpart of the JAX ``utils/trainer.py``): the step
+(``parallel.make_train_step``, one device or data-parallel over a mesh),
+tolerant checkpointing (save/load_network), a NaN guard (check_values) and
+the coloured logger.
 """
 
 from __future__ import annotations
 
 import math
 from collections.abc import Callable, Iterable
+
+import torch.distributed as dist
 
 from pytorch_points_tpu_torch.misc.logger import get_logger
 from pytorch_points_tpu_torch.parallel import make_train_step
@@ -34,17 +37,21 @@ class Trainer:
       remat: recompute the forward in the backward instead of keeping its
         activations (``make_train_step(remat=True)``: the whole loss
         checkpointed), as the reference's rematerialised step does.
-
-    The reference's ``mesh`` (an SPMD step over every device) has no
-    counterpart: this trainer drives one device.
+      mesh: a ``DeviceMesh`` with a 'data' axis (``parallel.make_mesh``):
+        every rank runs this loop on its shard of each batch, and the step
+        averages over the axis. Only rank 0 logs and writes checkpoints;
+        the other ranks wait for each checkpoint at a barrier. None (the
+        default) drives one device; the reference's default, every device,
+        needs a process group the caller starts.
     """
 
-    def __init__(self, model, optimizer, loss_fn, *, ckpt_dir=None,
-                 log_every: int = 50, ckpt_every: int = 1000,
+    def __init__(self, model, optimizer, loss_fn, *, mesh=None,
+                 ckpt_dir=None, log_every: int = 50, ckpt_every: int = 1000,
                  nan_guard: bool = True, remat: bool = False):
         self.model = model
         self.optimizer = optimizer
-        self.step_fn = make_train_step(model, optimizer, loss_fn,
+        self.mesh = mesh
+        self.step_fn = make_train_step(model, optimizer, loss_fn, mesh=mesh,
                                        remat=remat)
         self.ckpt_dir = ckpt_dir
         self.log_every = log_every
@@ -52,11 +59,22 @@ class Trainer:
         self.nan_guard = nan_guard
         self.step = 0
 
+    def _lead(self) -> bool:
+        """Whether this process logs and writes checkpoints."""
+        return self.mesh is None or dist.get_rank() == 0
+
+    def _save(self):
+        if self._lead():
+            save_network(self.model, self.ckpt_dir, step=self.step)
+        if self.mesh is not None:
+            dist.barrier()
+
     def restore(self, step: int | None = None):
         """Tolerant-restore the model's parameters from ``ckpt_dir``."""
         state, _ = load_network(self.model, self.ckpt_dir, step=step)
         self.model.load_state_dict(state)
-        log.info("restored checkpoint (step arg: %s)", step)
+        if self._lead():
+            log.info("restored checkpoint (step arg: %s)", step)
 
     def fit(self, batches: Iterable, steps: int | None = None,
             on_log: Callable | None = None, prefetch: int | None = 2):
@@ -67,7 +85,8 @@ class Trainer:
         Any iterable that is not already a ``data.Prefetcher`` is wrapped
         in one (depth ``prefetch``); ``prefetch=None`` iterates directly.
         The loss stays on the device between log points, so the host
-        queues steps ahead of the device. Returns the last loss (float)."""
+        queues steps ahead of the device. Returns the last loss (float);
+        with a mesh, the loss averaged over the ranks, on every rank."""
         from pytorch_points_tpu_torch.data import Prefetcher
 
         if prefetch is not None and not isinstance(batches, Prefetcher):
@@ -78,7 +97,8 @@ class Trainer:
             self.step += 1
             if self.step % self.log_every == 0:
                 lval = loss.item()
-                log.info("step %d  loss %.6f", self.step, lval)
+                if self._lead():
+                    log.info("step %d  loss %.6f", self.step, lval)
                 if self.nan_guard and not math.isfinite(lval):
                     check_values(self.model, "params")
                     raise FloatingPointError(
@@ -86,9 +106,9 @@ class Trainer:
                 if on_log is not None:
                     on_log(self.step, lval)
             if self.ckpt_dir and self.step % self.ckpt_every == 0:
-                save_network(self.model, self.ckpt_dir, step=self.step)
+                self._save()
             if steps is not None and self.step >= steps:
                 break
         if self.ckpt_dir:
-            save_network(self.model, self.ckpt_dir, step=self.step)
+            self._save()
         return loss.item() if loss is not None else None

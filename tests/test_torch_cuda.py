@@ -1544,3 +1544,73 @@ def test_augment_with_a_cuda_generator(dev):
     assert keep.any(dim=1).all() and not (keep & ~mask).any()
     with pytest.raises(RuntimeError):
         augment.jitter(torch.Generator().manual_seed(0), x)
+
+
+def test_emd_unequal_valid_counts_on_the_card(dev):
+    """Masks with unequal valid counts (30 against 35 of 40): the greedy
+    backstop runs, and the card gives the CPU's assignment (held to the
+    reference by test_torch_emd.py)."""
+    rng = np.random.default_rng(5)
+    p = rng.uniform(-1, 1, (1, 40, 3)).astype(np.float32)
+    q = rng.uniform(-1, 1, (1, 40, 3)).astype(np.float32)
+    pm, qm = np.arange(40)[None] < 30, np.arange(40)[None] < 35
+    want = earth_mover_distance(*(torch.from_numpy(a) for a in (p, q)),
+                                p_mask=torch.from_numpy(pm),
+                                q_mask=torch.from_numpy(qm))
+    got = earth_mover_distance(*_on(dev, p, q), p_mask=_on(dev, pm)[0],
+                               q_mask=_on(dev, qm)[0])
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert (got[1][0, :30] < 40).all()
+
+
+def test_nndistance_sharded_world1_runs_k13(dev, tmp_path):
+    """World 1 over NCCL: the sharded NN launches K13 twice and equals the
+    one-device K5 bit for bit."""
+    import torch.distributed as dist
+
+    from pytorch_points_tpu_torch.parallel import make_mesh, nndistance_sharded
+
+    rng = np.random.default_rng(6)
+    p, q = _on(dev, emd_cloud(rng, 2, 700, "grid"),
+               emd_cloud(rng, 2, 900, "grid"))
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh({"points": 1})
+        k13 = distance_tiles.nn_one_direction_cuda.launches
+        got = nndistance_sharded(p, q, mesh)
+        launches = distance_tiles.nn_one_direction_cuda.launches - k13
+    finally:
+        dist.destroy_process_group()
+    want = distance_tiles.nn_both_directions(p, q)
+    assert launches == 2
+    _assert_same(got, want)
+
+
+def test_gloo_collectives_on_cuda_tensors(dev, tmp_path):
+    """Two ranks on one card over gloo: the gathers, sums and the
+    host-staged ring shift the parallel ops use, their autograd rules, and
+    the sharded NN and ring against the one-device K5."""
+    from torch_parallel_ranks import Ranks
+
+    world = 2
+    ranks = Ranks(tmp_path, {}, world=world, deadline=120.0,
+                  mode="cuda").results
+    for r, out in enumerate(ranks):
+        np.testing.assert_array_equal(out["gather"][:, 0, 0], [1.0, 2.0])
+        np.testing.assert_array_equal(out["gather_u8"][:, 0, 0], [1, 2])
+        np.testing.assert_array_equal(out["psum"], np.full((3, 2), 3.0))
+        prev = (r - 1) % world + 1
+        np.testing.assert_array_equal(out["ring"][0], np.full((3, 2), prev))
+        np.testing.assert_array_equal(out["ring"][1],
+                                      np.full((3, 2), 10 * prev))
+        whole, loss, grad = out["autograd"]
+        np.testing.assert_array_equal(whole[::3, 0], [1.0, 2.0])
+        # loss = sum over ranks s of (s + 1) * sum(whole): its gradient on
+        # each rank's shard is 1 + 2
+        assert loss == 3 * 6 * 3.0
+        np.testing.assert_array_equal(grad, np.full((3, 2), 3.0))
+        assert out["nn_equal"] == [True] * 4
+        assert out["ring_equal"] == [True] * 4
+        assert out["nn_k13_launches"] == 2

@@ -467,3 +467,21 @@ def test_set_metrics_match_jax(metric):
     jcov, jmmd = jax_losses.coverage_and_mmd(gen, ref, **kw)
     np.testing.assert_allclose(cov.numpy(), np.asarray(jcov), rtol=1e-6)
     np.testing.assert_allclose(mmd.numpy(), np.asarray(jmmd), rtol=1e-6)
+
+
+def test_emd_unequal_valid_counts_matches_jax():
+    """Masks with unequal valid counts (30 against 35 of 40): the
+    reference's greedy backstop moves the persons left on alignment pads
+    to free real objects, and the port gives the same assignment."""
+    rng = np.random.default_rng(5)
+    p = rng.uniform(-1, 1, (1, 40, 3)).astype(np.float32)
+    q = rng.uniform(-1, 1, (1, 40, 3)).astype(np.float32)
+    pm = np.arange(40)[None] < 30
+    qm = np.arange(40)[None] < 35
+    jd, ja = jax_emd.earth_mover_distance(p, q, p_mask=pm, q_mask=qm)
+    dist, assign = earth_mover_distance(_t(p), _t(q), p_mask=_t(pm),
+                                        q_mask=_t(qm))
+    _eq(assign, ja)
+    np.testing.assert_allclose(dist.numpy(), np.asarray(jd), rtol=1e-6)
+    assert (dist[0, 30:] == 0).all() and (assign[0, 30:] == 0).all()
+    assert (assign[0, :30] < 40).all()
