@@ -153,9 +153,10 @@ Phases, in order; any failure raises and exits non-zero:
    of plain.
 
 15. config 10 (bench.py's config 10): 32 PLY clouds of 380-676 points
-   written to a git-ignored directory of the checkout (``make_dataset``,
-   the example's files), read by ``PlyFolderDataset`` through the native
-   library (built with g++ here; the phase fails if it does not load),
+   written to a git-ignored directory of the checkout (the port example's
+   ``make_dataset``, ``examples_torch/train_on_ply_dataset.py``), read by
+   ``PlyFolderDataset`` through the native library (built with g++ here;
+   the phase fails if it does not load),
    batched by ``BucketedBatcher(batch_size=4, multiple=128, max_buckets=2,
    shuffle=True, seed=0, drop_remainder=True)``, and the full-width
    ``PointCloudAutoencoder(npoint1=96, npoint2=24)`` trained on the masked
@@ -229,11 +230,32 @@ at the bf16 paths' shapes (SA2's group, the FP stages' gathers).
    the same number of calls on every rank), and the phase's seconds. The
    ranks' launch counts add to the main paths'.
 
-Phases 3-21 are the main paths. Each sets every kernel's launch count to 0
+22. the examples (``examples_torch/``): each script's ``main()`` in this
+   process on the card, every file it writes under the git-ignored
+   ``build/examples/`` (tempfile's directory points there for the phase):
+   ``upsample_cloud`` on a seeded 2048-point PLY (config 7's full-width
+   PointUpsampler(ratio=4)) and ``render_cloud`` at 256, each against the
+   same script run with ``--device cpu`` (the cloud within 1e-5 of its
+   scale, the uint8 pixels within 1); ``export_and_serve``,
+   ``train_autoencoder`` (on a world-1 NCCL group this script starts) and
+   ``deform_with_cage`` at their defaults, with their own checks (served
+   against live below 1e-5, the cage fit below 1e-3) and finite losses;
+   ``train_on_ply_dataset`` as the README runs it (400 steps, bf16 policy,
+   per-stage remat, masked chamfer + 0.05 masked EMD, a quarter of the
+   clouds held out), gated: every logged loss finite, the last below the
+   first / 100, the held-out f-score@0.05 at least 0.9; its curve and
+   metrics printed beside the TPU artifact's quality values
+   (``examples/artifacts/convergence_v5e.json``), its ms/step with the
+   card's name and power limit, its artifact at
+   ``build/examples/convergence.json``; the device's busy and idle share
+   of one step of the PLY run, of ``train_autoencoder`` and of
+   ``export_and_serve`` (profile_path).
+
+Phases 3-22 are the main paths. Each sets every kernel's launch count to 0
 just before each of its runs and reads them just after, and fails if a
 kernel of that run's path was never launched.
 
-22. profile: one call of each main path, traced with torch.profiler after
+23. profile: one call of each main path, traced with torch.profiler after
    its untraced timing: wall ms, device busy ms and idle share per call,
    the largest device items and the port's kernels among the rest; for
    config 6 and 6m also the glue around the ring kernels (its device items
@@ -250,7 +272,6 @@ from __future__ import annotations
 
 import functools
 import json
-import os
 import re
 import statistics
 import subprocess
@@ -403,6 +424,17 @@ UNIFORM_KERNELS = ("fps", "gather")
 SEMSEG_KERNELS = (*SERVE_KERNELS, "scatter")
 CLASSIFIER_KERNELS = ("fps", "ball_query", "gather")
 CONFIG10_KERNELS = TRAIN_KERNELS
+# the README's convergence run (README.md, the port's examples):
+# the masked bf16 autoencoder with per-stage remat and the masked EMD
+PLY_EXAMPLE_ARGS = ("--steps", "400", "--bf16", "--remat", "--emd-weight",
+                    "0.05", "--val-frac", "0.25")
+PLY_EXAMPLE_KERNELS = ("fps", "ball_query", "gather", "gather_bf16",
+                       "scatter", "knn", "nn_dense", "auction", "augment")
+PLY_FINAL_SHARE = 0.01  # gate: the last logged loss below first / 100
+PLY_VAL_FSCORE = 0.9  # gate: held-out f-score@0.05 at the end
+PLY_VAL_CL1_FINDING = 2.0  # held-out chamfer-L1 over the TPU artifact's
+EXAMPLE_CLOUD = 2048  # upsample_cloud's input (config 7's N)
+EXAMPLE_RENDER = 256  # render_cloud's image size
 
 
 def fail(msg: str) -> None:
@@ -440,28 +472,26 @@ def cloud(rng, b, n):
     return rng.uniform(-1, 1, (b, n, 3)).astype(np.float32)
 
 
-def make_dataset(root: str, count: int = 24, seed: int = 0) -> None:
-    """Write ``count`` PLY clouds: icosphere / grid templates under random
-    smooth deformations, each a random subset of 380 to 641 or 675 of the
-    vertices. The same files as ``examples/train_on_ply_dataset.py``'s
-    ``make_dataset`` (which imports JAX), on the port's geometry_utils and
-    pc_utils."""
-    from pytorch_points_tpu_torch.utils import geometry_utils, pc_utils
+def load_example(name: str):
+    """``examples_torch/<name>.py`` as a module of its own name (the JAX
+    examples in ``examples/`` share the file names)."""
+    import importlib.util
 
-    rng = np.random.default_rng(seed)
-    os.makedirs(root, exist_ok=True)
-    sphere, _ = geometry_utils.generate_icosphere(3)  # 642 verts
-    grid, _ = geometry_utils.generate_grid_mesh(26, 26)  # 676 verts
-    for i in range(count):
-        base = sphere if i % 2 == 0 else grid
-        freq = rng.uniform(1.0, 3.0, (3,))
-        amp = rng.uniform(0.1, 0.35)
-        phase = rng.uniform(0, 2 * np.pi, (3,))
-        pts = base + amp * np.sin(base * freq + phase)
-        n = int(rng.integers(380, len(pts)))
-        idx = rng.choice(len(pts), n, replace=False)
-        pc_utils.save_ply(pts[idx].astype(np.float32),
-                          os.path.join(root, f"cloud_{i:03d}.ply"))
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_example(module, argv):
+    """``module.main()`` with ``argv`` as its command line."""
+    saved = sys.argv
+    sys.argv = [module.__file__, *argv]
+    try:
+        return module.main()
+    finally:
+        sys.argv = saved
 
 
 def head_pred(rng):
@@ -2801,7 +2831,8 @@ def config10_run(torch, dev, wrappers, work):
     )
 
     cfg = CONFIG10
-    make_dataset(str(work / "ply"), count=cfg["count"])
+    load_example("train_on_ply_dataset").make_dataset(str(work / "ply"),
+                                                      count=cfg["count"])
     ds = PlyFolderDataset(str(work / "ply"))
     sizes = [ds[i].shape[0] for i in range(len(ds))]
 
@@ -3748,7 +3779,7 @@ def phase_parallel(torch, dev, wrappers):
         p, q = (torch.from_numpy(cloud(rng, PARALLEL["b"],
                                        PARALLEL["n"])).to(dev)
                 for _ in range(2))
-        # K13's device time on this path (uncounted, as phase 22's)
+        # K13's device time on this path (uncounted, as phase 23's)
         profile_path(torch, "nndistance_sharded, nccl world 1", lambda: (
             parallel.nndistance_sharded(p, q, mesh)[0].sum().item()))
     finally:
@@ -3787,6 +3818,240 @@ def phase_parallel(torch, dev, wrappers):
         print(f"{tag}: share of the EMD assignment equal to world 1's "
               f"{same!r}")
     print(f"phase 21 took {time.perf_counter() - t0!r} s")
+    return launches, {}
+
+
+def read_ppm(path: Path):
+    """A raw PPM (render_cloud's output without matplotlib) as uint8."""
+    raw = path.read_bytes()
+    head, size = raw.split(b"\n", 1)[0], int(raw.split()[1])
+    return np.frombuffer(raw[len(head) + 1:], np.uint8).reshape(size, size,
+                                                                 3)
+
+
+def example_upsample_render(torch, wrappers, work):
+    """upsample_cloud and render_cloud on a seeded cloud, the card's output
+    against the same script on the CPU."""
+    from pytorch_points_tpu_torch.utils import pc_utils
+
+    rng = np.random.default_rng(SEED + 50)
+    src = work / "cloud.ply"
+    pc_utils.save_ply(cloud(rng, 1, EXAMPLE_CLOUD)[0], str(src))
+    up = load_example("upsample_cloud")
+    launches = [drive(wrappers, CONFIG7_SERVE_KERNELS,
+                      "example upsample_cloud", lambda: run_example(
+                          up, [str(src), str(work / "up.ply")]))]
+    run_example(up, [str(src), str(work / "up_cpu.ply"), "--device", "cpu"])
+    got = pc_utils.read_ply(str(work / "up.ply"))
+    want = pc_utils.read_ply(str(work / "up_cpu.ply"))
+    gap = float(np.abs(got - want).max() / np.abs(want).max())
+    print(f"upsample_cloud: {got.shape} on the card, |card - cpu| / scale "
+          f"{gap!r}")
+    if got.shape != (4 * EXAMPLE_CLOUD, 3) or not np.isfinite(got).all() \
+            or gap > SERVE_TOL:
+        fail("example upsample_cloud: wrong shape, non-finite or apart "
+             "from the CPU run")
+
+    render = load_example("render_cloud")
+    size = str(EXAMPLE_RENDER)
+    launches.append(drive(wrappers, (), "example render_cloud",
+                          lambda: run_example(render, [
+                              str(src), str(work / "img.png"), size])))
+    run_example(render, [str(src), str(work / "img_cpu.png"), size,
+                         "--device", "cpu"])
+    if not (work / "img.ppm").exists():
+        print("render_cloud wrote a PNG (matplotlib present): pixels not "
+              "compared")
+        return launches
+    img, ref = (read_ppm(work / f).astype(np.int16)
+                for f in ("img.ppm", "img_cpu.ppm"))
+    gap = int(np.abs(img - ref).max())
+    print(f"render_cloud: {img.shape} PPM, covered pixels "
+          f"{int((img.max(-1) > 0).sum())}, max |card - cpu| {gap} of 255")
+    if gap > 1 or img.max() == 0:
+        fail("example render_cloud: empty or apart from the CPU run")
+    return launches
+
+
+def example_serve_cage(torch, dev, wrappers, calls):
+    """export_and_serve and deform_with_cage at their defaults, with their
+    own checks; export_and_serve's train step rebuilt on its model for the
+    profile."""
+    from pytorch_points_tpu_torch.ops import chamfer_distance
+
+    serve = load_example("export_and_serve")
+    seen = {}
+    ctor = serve.PointCloudAutoencoder
+    serve.PointCloudAutoencoder = lambda *a, **k: seen.setdefault(
+        "model", ctor(*a, **k))
+    try:
+        launches = [drive(wrappers, TRAIN_KERNELS, "example export_and_serve",
+                          lambda: run_example(serve, []))]
+    finally:
+        serve.PointCloudAutoencoder = ctor
+    model = seen["model"].train()
+    opt = torch.optim.Adam(model.parameters(), 1e-3)
+    x = torch.from_numpy(cloud(np.random.default_rng(0), 4, 512)).to(dev)
+
+    def serve_step():  # export_and_serve's step, on its model
+        opt.zero_grad(set_to_none=True)
+        loss = chamfer_distance(model(x), x)
+        loss.backward()
+        opt.step()
+        return loss.item()
+
+    calls["example export_and_serve train step, B=4 N=512"] = serve_step
+
+    cage = load_example("deform_with_cage")
+    launches.append(drive(wrappers, ("nn_dense", "scatter"),
+                          "example deform_with_cage",
+                          lambda: run_example(cage, [])))
+    return launches
+
+
+def example_autoencoder(torch, wrappers, work):
+    """train_autoencoder at its defaults on a world-1 NCCL group started
+    here (the script uses a group it finds), its step profiled while the
+    group lives."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from pytorch_points_tpu_torch import parallel
+
+    ex = load_example("train_autoencoder")
+    seen, losses = {}, []
+    make_step = parallel.make_train_step
+
+    def recorded(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def run(batch):
+            seen.setdefault("batch", batch)
+            loss = step(batch)
+            losses.append(loss)
+            return loss
+
+        seen["step"] = step
+        return run
+
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(work / "nccl_store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=PARALLEL_PG_TIMEOUT))
+    parallel.make_train_step = recorded
+    try:
+        launches = [drive(wrappers, (*TRAIN_KERNELS, *EMD_KERNELS),
+                          "example train_autoencoder",
+                          lambda: run_example(ex, [
+                              "--ckpt", str(work / "ae_ckpt")]))]
+        values = [v.item() for v in losses]
+        print(f"train_autoencoder: {len(values)} losses, first "
+              f"{values[0]!r}, last {values[-1]!r}")
+        if not np.isfinite(values).all():
+            fail("example train_autoencoder: non-finite loss")
+        step, batch = seen["step"], seen["batch"]
+        profile_path(torch, "example train_autoencoder step (world-1 mesh), "
+                     "B=8 N=1024, chamfer + 0.1 EMD",
+                     lambda: step(batch).item())
+    finally:
+        parallel.make_train_step = make_step
+        dist.destroy_process_group()
+    return launches
+
+
+def example_ply(torch, wrappers, work, calls):
+    """train_on_ply_dataset as the README runs it, gated."""
+    ex = load_example("train_on_ply_dataset")
+    out = work / "convergence.json"
+    seen = {}
+
+    class Trainer(ex.Trainer):
+        """The example's Trainer, keeping itself and its first batch for
+        the profile."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            seen["trainer"] = self
+            step_fn = self.step_fn
+
+            def step(batch):
+                seen.setdefault("batch", batch)
+                return step_fn(batch)
+
+            self.step_fn = step
+
+    ex.Trainer = Trainer
+    launches = [drive(wrappers, PLY_EXAMPLE_KERNELS,
+                      "example train_on_ply_dataset (README run)",
+                      lambda: run_example(ex, [*PLY_EXAMPLE_ARGS,
+                                               "--json-out", str(out)]))]
+    art = json.loads(out.read_text())
+    tpu = json.loads((ROOT / "examples" / "artifacts" /
+                      "convergence_v5e.json").read_text())
+    print("convergence curve (step, loss, held-out chamfer-L1, held-out "
+          "f-score@0.05):")
+    for e in art["loss_curve"]:
+        print(f"  {e['step']:4d} {e['loss']!r} {e.get('val_chamfer_l1')!r} "
+              f"{e.get('val_fscore_at_0.05')!r}")
+    print(f"convergence: loss {art['first_loss']!r} -> {art['final_loss']!r}"
+          f" (TPU artifact {tpu['first_loss']!r} -> {tpu['final_loss']!r}); "
+          f"train chamfer-L1 {art['train_chamfer_l1']!r} f-score "
+          f"{art['train_fscore_at_0.05']!r} (TPU "
+          f"{tpu['train_chamfer_l1']!r}, {tpu['train_fscore_at_0.05']!r}); "
+          f"held-out chamfer-L1 {art.get('val_chamfer_l1')!r} f-score "
+          f"{art.get('val_fscore_at_0.05')!r} on {art['val_clouds']} clouds "
+          f"(TPU {tpu['val_chamfer_l1']!r}, {tpu['val_fscore_at_0.05']!r} "
+          f"on {tpu['val_clouds']})")
+    print(f"convergence: {art['ms_per_step']!r} ms/step (the example's host "
+          f"clock, evaluations excluded) on {art['device']}")
+    print(f"convergence artifact {out.relative_to(ROOT)}: "
+          + json.dumps(art, separators=(",", ":")))
+    ratio = art["val_chamfer_l1"] / tpu["val_chamfer_l1"]
+    if ratio > PLY_VAL_CL1_FINDING:
+        print(f"FINDING: held-out chamfer-L1 {ratio!r} times the TPU "
+              "artifact's")
+    logged = [art["first_loss"], art["final_loss"],
+              *(e["loss"] for e in art["loss_curve"])]
+    if not np.isfinite(logged).all():
+        fail(f"example train_on_ply_dataset: non-finite loss {logged}")
+    if not art["final_loss"] < art["first_loss"] * PLY_FINAL_SHARE:
+        fail(f"example train_on_ply_dataset: final loss "
+             f"{art['final_loss']} not below first / 100")
+    if not art["val_fscore_at_0.05"] >= PLY_VAL_FSCORE:
+        fail(f"example train_on_ply_dataset: held-out f-score "
+             f"{art['val_fscore_at_0.05']} below {PLY_VAL_FSCORE}")
+    trainer, batch = seen["trainer"], seen["batch"]
+    shape = tuple(batch["points"].shape)
+    calls[f"example train_on_ply_dataset step, bf16 remat masked chamfer "
+          f"+ 0.05 EMD, bucket {shape}"] = lambda: trainer.step_fn(
+              batch).item()
+    return launches
+
+
+def phase_examples(torch, dev, wrappers):
+    """The six examples_torch/ scripts' main() on the card, everything
+    they write under build/examples/."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    print("== phase 22: the examples (examples_torch/), each main() in this "
+          "process on the card; card: " + card_line())
+    work = ROOT / "build" / "examples"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    saved, tempfile.tempdir = tempfile.tempdir, str(work)
+    calls = {}
+    try:
+        launches = example_upsample_render(torch, wrappers, work)
+        launches += example_serve_cage(torch, dev, wrappers, calls)
+        launches += example_autoencoder(torch, wrappers, work)
+        launches += example_ply(torch, wrappers, work, calls)
+    finally:
+        tempfile.tempdir = saved
+    for label, fn in calls.items():  # the phase's own rows of section 5
+        profile_path(torch, label, fn)
+    print(f"phase 22 took {time.perf_counter() - t0!r} s")
     return launches, {}
 
 
@@ -3950,11 +4215,12 @@ def main() -> int:
                   functools.partial(phase_headline, masked=True),
                   phase_fused, phase_pruned, phase_upsampler, phase_semseg,
                   phase_config10, phase_sorted, phase_config5b,
-                  phase_remat_bn, phase_cages, phase_dss, phase_parallel):
+                  phase_remat_bn, phase_cages, phase_dss, phase_parallel,
+                  phase_examples):
         counts, fns = phase(torch, dev, wrappers)
         paths += counts
         calls.update(fns)
-    print("== phase 22: profile one call of each main path")
+    print("== phase 23: profile one call of each main path")
     for label, fn in calls.items():
         profile_path(torch, label, fn)
 

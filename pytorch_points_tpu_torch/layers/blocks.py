@@ -150,17 +150,31 @@ def remat_call(fn: Callable, remat: bool, *args,
         **kwargs)
 
 
+def trunc_normal_(tensor: torch.Tensor, std: float,
+                  generator: torch.Generator) -> torch.Tensor:
+    """Fill ``tensor`` in place with a normal of mean 0 and ``std``
+    truncated at 2 ``std``, by the inverse CDF of uniform draws from
+    ``generator``: the values depend on the seed alone, whatever the torch
+    version (``nn.init.trunc_normal_`` draws by inverse CDF up to torch
+    2.12 and by rejection after, so a seed gave other weights there)."""
+    bound = math.erf(2.0 / math.sqrt(2.0))  # 2 Phi(2) - 1
+    with torch.no_grad():
+        tensor.uniform_(-bound, bound, generator=generator)
+        tensor.erfinv_()
+        tensor.mul_(std * math.sqrt(2.0))
+        return tensor.clamp_(min=-2.0 * std, max=2.0 * std)
+
+
 def _linear(cin: int, cout: int, generator: torch.Generator,
             dtype: torch.dtype | None = None) -> Linear:
     """:class:`Linear` with flax's initialisation: lecun-normal weight (a
     normal truncated at 2 std, rescaled to unit variance per fan-in), zero
-    bias. Drawn from ``generator`` on the CPU, so a seed gives the same
-    weights on every device."""
+    bias. Drawn from ``generator`` on the CPU (:func:`trunc_normal_`), so
+    a seed gives the same weights on every device and torch version."""
     lin = nn.utils.skip_init(Linear, cin, cout, dtype)
     std = math.sqrt(1.0 / cin) / 0.87962566103423978
     with torch.no_grad():
-        nn.init.trunc_normal_(lin.weight, std=std, a=-2 * std, b=2 * std,
-                              generator=generator)
+        trunc_normal_(lin.weight, std, generator)
         lin.bias.zero_()
     return lin
 

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from pytorch_points_tpu_torch.layers.blocks import trunc_normal_
 from pytorch_points_tpu_torch.misc.logger import get_logger
 
 log = get_logger(__name__)
@@ -204,9 +205,7 @@ def _draw(method: str, fan_in: int, fan_out: int, gen: torch.Generator):
     if dist == "uniform":
         limit = math.sqrt(3.0 * variance)
         return w.uniform_(-limit, limit, generator=gen)
-    std = math.sqrt(variance) / _TRUNC_STD
-    return torch.nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                                       generator=gen)
+    return trunc_normal_(w, math.sqrt(variance) / _TRUNC_STD, gen)
 
 
 def weights_init(model: nn.Module, method: str = "xavier_uniform",

@@ -290,12 +290,19 @@ def test_prefetcher_abandoned_iteration_releases_producer():
 
 
 def test_chip_smoke_dataset_matches_the_example(tmp_path, monkeypatch):
+    """Config 10's PLY files (chip_smoke.py phase 15) come from the port
+    example's ``make_dataset``, byte-equal to the JAX example's files;
+    chip_smoke keeps no copy of its own."""
     monkeypatch.syspath_prepend(str(ROOT / "examples"))
     monkeypatch.syspath_prepend(str(ROOT))
     import chip_smoke
     import train_on_ply_dataset
 
-    chip_smoke.make_dataset(str(tmp_path / "port"), count=6, seed=3)
+    port = chip_smoke.load_example("train_on_ply_dataset")
+    assert port.__file__ == str(ROOT / "examples_torch" /
+                                "train_on_ply_dataset.py")
+    assert not hasattr(chip_smoke, "make_dataset")
+    port.make_dataset(str(tmp_path / "port"), count=6, seed=3)
     train_on_ply_dataset.make_dataset(str(tmp_path / "jax"), count=6, seed=3)
     names = sorted(os.listdir(tmp_path / "port"))
     assert names == sorted(os.listdir(tmp_path / "jax")) and len(names) == 6
@@ -303,6 +310,7 @@ def test_chip_smoke_dataset_matches_the_example(tmp_path, monkeypatch):
         assert (tmp_path / "port" / name).read_bytes() == (
             tmp_path / "jax" / name).read_bytes()
     assert "jax" not in sys.modules["chip_smoke"].__dict__
+    assert "jax" not in vars(port)
 
 
 def test_native_entries_refuse_bad_shapes():

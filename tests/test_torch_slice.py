@@ -111,3 +111,32 @@ def test_same_seed_same_weights():
                               generator=torch.Generator().manual_seed(3))
     for pa, pb in zip(a.parameters(), b.parameters()):
         assert torch.equal(pa, pb)
+
+
+# The first four weights of SA1's first Linear from seed 0, as torch 2.11's
+# ``nn.init.trunc_normal_`` (an inverse-CDF draw) gives them on the card's
+# machine; torch 2.13's rejection draw gave [-0.7390, -0.7564, ...] from the
+# same seed before ``layers.blocks.trunc_normal_`` drew them itself.
+SEED0_SA1_W0 = [-0.0058786883018910885, 0.45521751046180725,
+                -0.814900815486908, -0.6837354898452759]
+
+
+def test_seeded_weights_do_not_depend_on_the_torch_version():
+    model = PointCloudAutoencoder(npoint1=96, npoint2=24, device="cpu",
+                                  generator=torch.Generator().manual_seed(0))
+    got = model.encoder.sa1.mlp.layers[0].weight.detach().flatten()[:4]
+    assert got.tolist() == SEED0_SA1_W0
+
+
+def test_linear_init_matches_jax_statistics():
+    """A wide Linear (in 600, out 200): the port's draw has the bound and
+    standard deviation of flax's lecun-normal kernel (2%)."""
+    from pytorch_points_tpu_torch.layers.blocks import _linear
+
+    ref = np.asarray(nnx.Linear(600, 200, rngs=nnx.Rngs(0)).kernel[...])
+    got = _linear(600, 200, torch.Generator().manual_seed(0)).weight
+    got = got.detach().numpy().T
+    np.testing.assert_allclose(got.std(), ref.std(), rtol=0.02)
+    np.testing.assert_allclose(abs(got.mean()), 0, atol=0.01 * ref.std())
+    bound = np.abs(ref).max()
+    assert bound * 0.97 <= np.abs(got).max() <= bound * 1.01
