@@ -14,6 +14,7 @@ from torch import nn
 
 from pytorch_points_tpu_torch.layers.blocks import _linear
 from pytorch_points_tpu_torch.ops import group_points, knn
+from pytorch_points_tpu_torch.utils.profiling import annotate
 
 
 class DenseEdgeConv(nn.Module):
@@ -61,19 +62,20 @@ class DenseEdgeConv(nn.Module):
         The graph is built on ``xyz`` when given (kNN over coordinates),
         else in feature space over all C channels (the dynamic graph of
         DGCNN). Its indices carry no gradient."""
-        ref = (features if xyz is None else xyz).detach()
-        _, idx = knn(ref, ref, self.k + 1, support_mask=mask, impl=impl)
-        nbrs = group_points(features, idx[..., 1:], impl)  # drop self
-        center = features[:, :, None, :]
-        x = center.expand_as(nbrs)  # the input, replicated per edge
-        y = torch.relu(self.first(torch.cat([x, nbrs - center], dim=-1)))
-        h = torch.cat([x, y], dim=-1)
-        for conv in self.convs:
-            y = torch.relu(conv(h))
-            h = torch.cat([h, y], dim=-1)
-        # amax, as jnp.max, splits a gradient evenly among tied maxima (the
-        # centre copies always tie)
-        out = torch.amax(h, dim=2)
-        if mask is not None:
-            out = torch.where(mask[..., None], out, 0.0)
-        return out
+        with annotate("layers.edgeconv"):
+            ref = (features if xyz is None else xyz).detach()
+            _, idx = knn(ref, ref, self.k + 1, support_mask=mask, impl=impl)
+            nbrs = group_points(features, idx[..., 1:], impl)  # drop self
+            center = features[:, :, None, :]
+            x = center.expand_as(nbrs)  # the input, replicated per edge
+            y = torch.relu(self.first(torch.cat([x, nbrs - center], dim=-1)))
+            h = torch.cat([x, y], dim=-1)
+            for conv in self.convs:
+                y = torch.relu(conv(h))
+                h = torch.cat([h, y], dim=-1)
+            # amax, as jnp.max, splits a gradient evenly among tied maxima
+            # (the centre copies always tie)
+            out = torch.amax(h, dim=2)
+            if mask is not None:
+                out = torch.where(mask[..., None], out, 0.0)
+            return out

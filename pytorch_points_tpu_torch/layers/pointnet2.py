@@ -22,6 +22,7 @@ from pytorch_points_tpu_torch.ops import (
     three_interpolate,
     three_nn,
 )
+from pytorch_points_tpu_torch.utils.profiling import annotate
 
 
 class PointNetSAModule(nn.Module):
@@ -64,24 +65,26 @@ class PointNetSAModule(nn.Module):
     def forward(self, xyz: torch.Tensor, features: torch.Tensor | None = None,
                 mask: torch.Tensor | None = None, impl: str = "auto"):
         """[B,N,3], [B,N,C] -> (new_xyz [B,P,3], new_features [B,P,mlp[-1]])."""
-        if self.group_all:
-            new_xyz, grouped, _, _ = group_all(xyz, features,
-                                               use_xyz=self.use_xyz)
-        elif (self.sorted_pipeline and self.radius is not None
-              and mask is None):
-            new_xyz, grouped, _, _, _ = sample_and_group_sorted(
-                xyz, features, self.npoint, self.nsample, self.radius,
-                use_xyz=self.use_xyz, normalize_radius=self.normalize_radius,
-                impl=impl,
-            )
-        else:
-            new_xyz, grouped, _, _ = sample_and_group(
-                xyz, features, self.npoint, self.nsample, self.radius,
-                use_xyz=self.use_xyz, normalize_radius=self.normalize_radius,
-                mask=mask, impl=impl,
-            )
-        h = self.mlp(grouped)  # [B, P, S, C']
-        return new_xyz, h.amax(dim=2)
+        with annotate("layers.sa"):
+            if self.group_all:
+                new_xyz, grouped, _, _ = group_all(xyz, features,
+                                                   use_xyz=self.use_xyz)
+            elif (self.sorted_pipeline and self.radius is not None
+                  and mask is None):
+                new_xyz, grouped, _, _, _ = sample_and_group_sorted(
+                    xyz, features, self.npoint, self.nsample, self.radius,
+                    use_xyz=self.use_xyz,
+                    normalize_radius=self.normalize_radius, impl=impl,
+                )
+            else:
+                new_xyz, grouped, _, _ = sample_and_group(
+                    xyz, features, self.npoint, self.nsample, self.radius,
+                    use_xyz=self.use_xyz,
+                    normalize_radius=self.normalize_radius, mask=mask,
+                    impl=impl,
+                )
+            h = self.mlp(grouped)  # [B, P, S, C']
+            return new_xyz, h.amax(dim=2)
 
 
 class PointNetFPModule(nn.Module):
@@ -98,15 +101,16 @@ class PointNetFPModule(nn.Module):
                 feat_hi: torch.Tensor | None, feat_lo: torch.Tensor,
                 lo_mask: torch.Tensor | None = None, impl: str = "auto"):
         """Upsample feat_lo [B,m,C] onto xyz_hi [B,n,3]; concat feat_hi."""
-        if xyz_lo.shape[1] == 1:
-            # Degenerate global feature: broadcast.
-            interp = feat_lo.expand(feat_lo.shape[0], xyz_hi.shape[1],
-                                    feat_lo.shape[-1])
-        else:
-            dist, idx = three_nn(xyz_hi, xyz_lo, known_mask=lo_mask,
-                                 impl=impl)
-            interp = three_interpolate(feat_lo, idx,
-                                       interpolation_weights(dist), impl)
-        if feat_hi is not None:
-            interp = torch.cat([feat_hi, interp], dim=-1)
-        return self.mlp(interp)
+        with annotate("layers.fp"):
+            if xyz_lo.shape[1] == 1:
+                # Degenerate global feature: broadcast.
+                interp = feat_lo.expand(feat_lo.shape[0], xyz_hi.shape[1],
+                                        feat_lo.shape[-1])
+            else:
+                dist, idx = three_nn(xyz_hi, xyz_lo, known_mask=lo_mask,
+                                     impl=impl)
+                interp = three_interpolate(feat_lo, idx,
+                                           interpolation_weights(dist), impl)
+            if feat_hi is not None:
+                interp = torch.cat([feat_hi, interp], dim=-1)
+            return self.mlp(interp)

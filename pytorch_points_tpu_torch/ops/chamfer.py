@@ -27,6 +27,7 @@ from pytorch_points_tpu_torch.kernels import (
 )
 from pytorch_points_tpu_torch.kernels.gather import gather_rows
 from pytorch_points_tpu_torch.ops.scatter_impl import scatter_add_auto
+from pytorch_points_tpu_torch.utils.profiling import op_scope
 
 _SORTED_MIN_POINTS = 8192  # per-cloud size from which the sorted path runs
 
@@ -54,16 +55,17 @@ class _NNDistance(torch.autograd.Function):
     def backward(ctx, g1, _, g2, __):
         p, q, i1, i2 = ctx.saved_tensors
         impl = ctx.impl
-        # Direction 1: dist1[i] = |p[i] - q[idx1[i]]|^2
-        diff1 = p - gather_rows(q, i1, impl=impl)
-        gp = 2.0 * g1[..., None] * diff1
-        gq = scatter_add_auto(i1, -gp, q.shape[1], impl)
-        # Direction 2: dist2[j] = |q[j] - p[idx2[j]]|^2
-        diff2 = q - gather_rows(p, i2, impl=impl)
-        gq = gq + 2.0 * g2[..., None] * diff2
-        gp_scatter = scatter_add_auto(i2, -2.0 * g2[..., None] * diff2,
-                                      p.shape[1], impl)
-        return gp + gp_scatter, gq, None, None
+        with op_scope("nndistance.backward"):
+            # Direction 1: dist1[i] = |p[i] - q[idx1[i]]|^2
+            diff1 = p - gather_rows(q, i1, impl=impl)
+            gp = 2.0 * g1[..., None] * diff1
+            gq = scatter_add_auto(i1, -gp, q.shape[1], impl)
+            # Direction 2: dist2[j] = |q[j] - p[idx2[j]]|^2
+            diff2 = q - gather_rows(p, i2, impl=impl)
+            gq = gq + 2.0 * g2[..., None] * diff2
+            gp_scatter = scatter_add_auto(i2, -2.0 * g2[..., None] * diff2,
+                                          p.shape[1], impl)
+            return gp + gp_scatter, gq, None, None
 
 
 class _ChamferSumsSorted(torch.autograd.Function):
@@ -84,15 +86,16 @@ class _ChamferSumsSorted(torch.autograd.Function):
     def backward(ctx, g1, g2):
         p, q, i1o, i2o, rows_p, rows_q, tgt_p, tgt_q = ctx.saved_tensors
         impl = ctx.impl
-        diff1 = rows_p - gather_rows(q, i1o, impl=impl)  # [B,N,3]
-        diff2 = rows_q - gather_rows(p, i2o, impl=impl)  # [B,M,3]
-        u1 = 2.0 * g1[:, None, None] * diff1
-        u2 = 2.0 * g2[:, None, None] * diff2
         n, m = p.shape[1], q.shape[1]
-        gp = scatter_add_auto(torch.cat([tgt_p, i2o], 1),
-                              torch.cat([u1, -u2], 1), n, impl)
-        gq = scatter_add_auto(torch.cat([tgt_q, i1o], 1),
-                              torch.cat([u2, -u1], 1), m, impl)
+        with op_scope("chamfer.backward"):
+            diff1 = rows_p - gather_rows(q, i1o, impl=impl)  # [B,N,3]
+            diff2 = rows_q - gather_rows(p, i2o, impl=impl)  # [B,M,3]
+            u1 = 2.0 * g1[:, None, None] * diff1
+            u2 = 2.0 * g2[:, None, None] * diff2
+            gp = scatter_add_auto(torch.cat([tgt_p, i2o], 1),
+                                  torch.cat([u1, -u2], 1), n, impl)
+            gq = scatter_add_auto(torch.cat([tgt_q, i1o], 1),
+                                  torch.cat([u2, -u1], 1), m, impl)
         return gp, gq, None
 
 
@@ -116,25 +119,26 @@ def nndistance(p: torch.Tensor, q: torch.Tensor,
     if p.ndim != 3 or q.ndim != 3:
         raise ValueError(f"expected [B,N,C] clouds, got {tuple(p.shape)} and "
                          f"{tuple(q.shape)}")
-    p = p.to(torch.float32)
-    q = q.to(torch.float32)
-    sorted_ok = _sorted_size_ok(p, q)
-    if p_mask is None and q_mask is None:
-        return _NNDistance.apply(p, q, "sorted" if sorted_ok else "dense",
-                                 impl)
-    pp = poison_points(p, p_mask, sign=1.0)
-    qp = poison_points(q, q_mask, sign=-1.0)  # opposite side: mutually far
-    dist1, idx1, dist2, idx2 = _NNDistance.apply(
-        pp, qp, "sorted_masked" if sorted_ok else "dense", impl)
-    if p_mask is not None:
-        dist1 = torch.where(p_mask, dist1, 0.0)
-        idx1 = torch.where(p_mask, idx1, 0)
-    if q_mask is not None:
-        dist2 = torch.where(q_mask, dist2, 0.0)
-        idx2 = torch.where(q_mask, idx2, 0)
-    # Keep the output finite even where a valid point saw only poison.
-    return (torch.clamp_max(dist1, BIG_DISTANCE), idx1,
-            torch.clamp_max(dist2, BIG_DISTANCE), idx2)
+    with op_scope("nndistance"):
+        p = p.to(torch.float32)
+        q = q.to(torch.float32)
+        sorted_ok = _sorted_size_ok(p, q)
+        if p_mask is None and q_mask is None:
+            return _NNDistance.apply(p, q, "sorted" if sorted_ok else "dense",
+                                     impl)
+        pp = poison_points(p, p_mask, sign=1.0)
+        qp = poison_points(q, q_mask, sign=-1.0)  # opposite side: far apart
+        dist1, idx1, dist2, idx2 = _NNDistance.apply(
+            pp, qp, "sorted_masked" if sorted_ok else "dense", impl)
+        if p_mask is not None:
+            dist1 = torch.where(p_mask, dist1, 0.0)
+            idx1 = torch.where(p_mask, idx1, 0)
+        if q_mask is not None:
+            dist2 = torch.where(q_mask, dist2, 0.0)
+            idx2 = torch.where(q_mask, idx2, 0)
+        # Keep the output finite even where a valid point saw only poison.
+        return (torch.clamp_max(dist1, BIG_DISTANCE), idx1,
+                torch.clamp_max(dist2, BIG_DISTANCE), idx2)
 
 
 def chamfer_path(p: torch.Tensor, q: torch.Tensor,
@@ -175,30 +179,33 @@ def chamfer_distance(p: torch.Tensor, q: torch.Tensor,
     """
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"unknown reduction {reduction!r}")
-    if chamfer_path(p, q, p_mask, q_mask, impl, reduction) == "sorted_loss":
-        s1, s2 = _ChamferSumsSorted.apply(p.to(torch.float32),
-                                          q.to(torch.float32), impl)
-        if reduction == "mean":
-            l1, l2 = s1 / p.shape[1], s2 / q.shape[1]
-        else:
-            l1, l2 = s1, s2
-        return l1.mean() if one_sided else (l1 + l2).mean()
-    dist1, _, dist2, _ = nndistance(p, q, p_mask, q_mask, impl=impl)
+    path = chamfer_path(p, q, p_mask, q_mask, impl, reduction)
+    with op_scope("chamfer"):
+        if path == "sorted_loss":
+            s1, s2 = _ChamferSumsSorted.apply(p.to(torch.float32),
+                                              q.to(torch.float32), impl)
+            if reduction == "mean":
+                l1, l2 = s1 / p.shape[1], s2 / q.shape[1]
+            else:
+                l1, l2 = s1, s2
+            return l1.mean() if one_sided else (l1 + l2).mean()
+        dist1, _, dist2, _ = nndistance(p, q, p_mask, q_mask, impl=impl)
 
-    def _reduce(d, mask):
+        def _reduce(d, mask):
+            if reduction == "none":
+                return d
+            if mask is None:
+                return (d.mean(dim=-1) if reduction == "mean"
+                        else d.sum(dim=-1))
+            s = torch.where(mask, d, 0.0).sum(dim=-1)
+            if reduction == "sum":
+                return s
+            return s / mask.sum(dim=-1).clamp_min(1)
+
+        loss1 = _reduce(dist1, p_mask)
+        if one_sided:
+            return loss1.mean() if reduction != "none" else loss1
+        loss2 = _reduce(dist2, q_mask)
         if reduction == "none":
-            return d
-        if mask is None:
-            return d.mean(dim=-1) if reduction == "mean" else d.sum(dim=-1)
-        s = torch.where(mask, d, 0.0).sum(dim=-1)
-        if reduction == "sum":
-            return s
-        return s / mask.sum(dim=-1).clamp_min(1)
-
-    loss1 = _reduce(dist1, p_mask)
-    if one_sided:
-        return loss1.mean() if reduction != "none" else loss1
-    loss2 = _reduce(dist2, q_mask)
-    if reduction == "none":
-        return loss1, loss2
-    return (loss1 + loss2).mean()
+            return loss1, loss2
+        return (loss1 + loss2).mean()

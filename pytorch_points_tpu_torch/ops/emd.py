@@ -20,6 +20,7 @@ import torch
 from pytorch_points_tpu_torch.core.masking import BIG_COORD
 from pytorch_points_tpu_torch.kernels import auction
 from pytorch_points_tpu_torch.ops.scatter_impl import scatter_add_auto
+from pytorch_points_tpu_torch.utils.profiling import op_scope
 
 
 def _matched(p, q, assign):
@@ -52,10 +53,11 @@ class _EMD(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _):
         assign, diff = ctx.saved_tensors
-        gp = 2.0 * g[..., None] * diff
         gq = None
-        if ctx.needs_input_grad[1]:  # a train step's target needs none
-            gq = scatter_add_auto(assign, -gp, diff.shape[1], ctx.impl)
+        with op_scope("emd.backward"):
+            gp = 2.0 * g[..., None] * diff
+            if ctx.needs_input_grad[1]:  # a train step's target needs none
+                gq = scatter_add_auto(assign, -gp, diff.shape[1], ctx.impl)
         return gp, gq, None, None, None, None, None, None
 
 
@@ -108,18 +110,19 @@ def earth_mover_distance(p: torch.Tensor, q: torch.Tensor,
     if p.shape != q.shape or p.ndim != 3:
         raise ValueError(f"EMD needs equal-shape [B,N,3] clouds, got "
                          f"{tuple(p.shape)} vs {tuple(q.shape)}")
-    p = p.to(torch.float32)
-    q = q.to(torch.float32)
-    args = (float(eps), int(max_iters), int(phases), int(endgame_pop_cap),
-            impl)
-    if p_mask is None and q_mask is None:
-        return _EMD.apply(p, q, *args, True)
-    # Only one mask for both clouds promises equal valid counts without a
-    # look at the data; otherwise the auction runs its greedy backstop.
-    dist, assign = _EMD.apply(_poison_rank_matched(p, p_mask),
-                              _poison_rank_matched(q, q_mask), *args,
-                              p_mask is q_mask)
-    if p_mask is not None:
-        dist = torch.where(p_mask, dist, 0.0)
-        assign = torch.where(p_mask, assign, 0)
-    return dist, assign
+    with op_scope("emd"):
+        p = p.to(torch.float32)
+        q = q.to(torch.float32)
+        args = (float(eps), int(max_iters), int(phases),
+                int(endgame_pop_cap), impl)
+        if p_mask is None and q_mask is None:
+            return _EMD.apply(p, q, *args, True)
+        # Only one mask for both clouds promises equal valid counts without
+        # a look at the data; otherwise the auction runs its greedy backstop.
+        dist, assign = _EMD.apply(_poison_rank_matched(p, p_mask),
+                                  _poison_rank_matched(q, q_mask), *args,
+                                  p_mask is q_mask)
+        if p_mask is not None:
+            dist = torch.where(p_mask, dist, 0.0)
+            assign = torch.where(p_mask, assign, 0)
+        return dist, assign

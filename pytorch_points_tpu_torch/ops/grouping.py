@@ -42,6 +42,7 @@ from pytorch_points_tpu_torch.ops.sampling import (
     gather_points,
 )
 from pytorch_points_tpu_torch.ops.scatter_impl import scatter_add_auto
+from pytorch_points_tpu_torch.utils.profiling import op_scope
 
 
 class _Knn(torch.autograd.Function):
@@ -64,16 +65,18 @@ class _Knn(torch.autograd.Function):
         query, support, idx = ctx.saved_tensors
         b, nq, k = idx.shape
         flat = idx.reshape(b, nq * k)
-        sel = gather_rows(support, flat, impl=ctx.impl)
-        diff = query[:, :, None, :] - sel.reshape(b, nq, k, -1)
         gq = gs = None
-        if ctx.needs_input_grad[0]:
-            gq = (2.0 * gd[..., None] * diff).sum(dim=2)
-        if ctx.needs_input_grad[1]:
-            gs = scatter_add_auto(
-                flat, (-2.0 * gd[..., None] * diff).reshape(b, nq * k, -1),
-                support.shape[1], ctx.impl,
-            )
+        with op_scope("knn.backward"):
+            sel = gather_rows(support, flat, impl=ctx.impl)
+            diff = query[:, :, None, :] - sel.reshape(b, nq, k, -1)
+            if ctx.needs_input_grad[0]:
+                gq = (2.0 * gd[..., None] * diff).sum(dim=2)
+            if ctx.needs_input_grad[1]:
+                gs = scatter_add_auto(
+                    flat,
+                    (-2.0 * gd[..., None] * diff).reshape(b, nq * k, -1),
+                    support.shape[1], ctx.impl,
+                )
         return gq, gs, None, None, None
 
 
@@ -88,8 +91,9 @@ def knn(query: torch.Tensor, support: torch.Tensor, k: int,
     Differentiable in ``dist`` wrt both clouds, the neighbour set held
     constant.
     """
-    support = poison_points(support, support_mask, sign=-1.0)
-    return _Knn.apply(query, support, k, support_mask is not None, impl)
+    with op_scope("knn"):
+        support = poison_points(support, support_mask, sign=-1.0)
+        return _Knn.apply(query, support, k, support_mask is not None, impl)
 
 
 def knn_path(query: torch.Tensor, support: torch.Tensor, k: int,
@@ -173,8 +177,9 @@ def ball_query(xyz: torch.Tensor, centroids: torch.Tensor, radius: float,
     int32 hit counts capped at nsample). ``mask``: [B,N] support validity.
     Runs on the detached clouds: the indices carry no gradient.
     """
-    return ballquery.ball_query(xyz.detach(), centroids.detach(), radius,
-                                nsample, mask, impl=impl)
+    with op_scope("ball_query"):
+        return ballquery.ball_query(xyz.detach(), centroids.detach(), radius,
+                                    nsample, mask, impl=impl)
 
 
 def group_points(features: torch.Tensor, idx: torch.Tensor,
@@ -182,8 +187,9 @@ def group_points(features: torch.Tensor, idx: torch.Tensor,
     """[B,N,C] features, [B,P,S] indices -> [B,P,S,C]; backward is a
     deterministic scatter-add into the N axis."""
     b, p, s = idx.shape
-    g = gather_points(features, idx.reshape(b, p * s), impl)
-    return g.reshape(b, p, s, features.shape[-1])
+    with op_scope("group"):
+        g = gather_points(features, idx.reshape(b, p * s), impl)
+        return g.reshape(b, p, s, features.shape[-1])
 
 
 class _BqGroupCentered(torch.autograd.Function):
@@ -207,12 +213,13 @@ class _BqGroupCentered(torch.autograd.Function):
         (idx,) = ctx.saved_tensors
         b = idx.shape[0]
         grad_xyz = grad_cen = None
-        if ctx.needs_input_grad[0]:
-            grad_xyz = scatter_add_auto(idx.reshape(b, -1),
-                                        gg.reshape(b, -1, 3), ctx.n,
-                                        ctx.impl)
-        if ctx.needs_input_grad[1]:
-            grad_cen = -gg.sum(dim=2)
+        with op_scope("ball_query.backward"):
+            if ctx.needs_input_grad[0]:
+                grad_xyz = scatter_add_auto(idx.reshape(b, -1),
+                                            gg.reshape(b, -1, 3), ctx.n,
+                                            ctx.impl)
+            if ctx.needs_input_grad[1]:
+                grad_cen = -gg.sum(dim=2)
         return grad_xyz, grad_cen, None, None, None
 
 
@@ -221,7 +228,8 @@ def _bq_group_centered(xyz: torch.Tensor, centroids: torch.Tensor,
     """Fused SA front half with gradients: (idx [B,P,ns] int32, cnt [B,P]
     int32, g [B,P,ns,3] = xyz[idx] - centroid), differentiable in g with
     respect to both clouds (the neighbourhoods held constant)."""
-    return _BqGroupCentered.apply(xyz, centroids, radius, nsample, impl)
+    with op_scope("ball_query"):
+        return _BqGroupCentered.apply(xyz, centroids, radius, nsample, impl)
 
 
 def _per_radius(centered: torch.Tensor, radius: float) -> torch.Tensor:

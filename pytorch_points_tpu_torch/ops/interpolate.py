@@ -16,13 +16,15 @@ import torch
 from pytorch_points_tpu_torch.kernels.gather import gather_rows
 from pytorch_points_tpu_torch.ops.grouping import knn
 from pytorch_points_tpu_torch.ops.scatter_impl import scatter_add_auto
+from pytorch_points_tpu_torch.utils.profiling import op_scope
 
 
 def three_nn(unknown: torch.Tensor, known: torch.Tensor,
              known_mask: torch.Tensor | None = None, impl: str = "auto"):
     """[B,n,3] high-res, [B,m,3] low-res -> (dist [B,n,3] squared
     ascending, idx [B,n,3] int32)."""
-    return knn(unknown, known, 3, support_mask=known_mask, impl=impl)
+    with op_scope("three_nn"):
+        return knn(unknown, known, 3, support_mask=known_mask, impl=impl)
 
 
 def interpolation_weights(dist: torch.Tensor, eps: float = 1e-8):
@@ -57,13 +59,15 @@ class _ThreeInterpolate(torch.autograd.Function):
         b, m, c = features.shape
         n, k = idx.shape[1:]
         grad_f = grad_w = None
-        if ctx.needs_input_grad[0]:
-            wg = g[:, :, None, :] * weight[..., None]  # [B,n,k,C]
-            grad_f = scatter_add_auto(idx.reshape(b, n * k),
-                                      wg.reshape(b, n * k, c), m, ctx.impl)
-        if ctx.needs_input_grad[2]:
-            grad_w = (_gathered(features, idx, ctx.impl)
-                      * g[:, :, None, :]).sum(dim=-1)
+        with op_scope("three_interpolate.backward"):
+            if ctx.needs_input_grad[0]:
+                wg = g[:, :, None, :] * weight[..., None]  # [B,n,k,C]
+                grad_f = scatter_add_auto(idx.reshape(b, n * k),
+                                          wg.reshape(b, n * k, c), m,
+                                          ctx.impl)
+            if ctx.needs_input_grad[2]:
+                grad_w = (_gathered(features, idx, ctx.impl)
+                          * g[:, :, None, :]).sum(dim=-1)
         return grad_f, None, grad_w, None
 
 
@@ -71,5 +75,6 @@ def three_interpolate(features: torch.Tensor, idx: torch.Tensor,
                       weight: torch.Tensor, impl: str = "auto"):
     """[B,m,C] low-res features, [B,n,3] idx, [B,n,3] weights -> [B,n,C];
     differentiable in ``features`` and ``weight``."""
-    return _ThreeInterpolate.apply(features, idx, weight.to(features.dtype),
-                                   impl)
+    with op_scope("three_interpolate"):
+        return _ThreeInterpolate.apply(features, idx,
+                                       weight.to(features.dtype), impl)

@@ -15,6 +15,7 @@ import torch
 from pytorch_points_tpu_torch.kernels import fps as fps_kernel
 from pytorch_points_tpu_torch.kernels.gather import gather_rows
 from pytorch_points_tpu_torch.ops.scatter_impl import scatter_add_auto
+from pytorch_points_tpu_torch.utils.profiling import op_scope
 
 
 class _Gather(torch.autograd.Function):
@@ -29,7 +30,8 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        return scatter_add_auto(idx, g, ctx.n, ctx.impl), None, None
+        with op_scope("gather.backward"):
+            return scatter_add_auto(idx, g, ctx.n, ctx.impl), None, None
 
 
 class _SampleAndGather(torch.autograd.Function):
@@ -49,8 +51,9 @@ class _SampleAndGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _):
         (idx,) = ctx.saved_tensors
-        return (scatter_add_auto(idx, g, ctx.n, ctx.impl), None, None, None,
-                None)
+        with op_scope("fps.backward"):
+            return (scatter_add_auto(idx, g, ctx.n, ctx.impl), None, None,
+                    None, None)
 
 
 class _ScatterAdd(torch.autograd.Function):
@@ -67,7 +70,9 @@ class _ScatterAdd(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        return g, None, gather_rows(g.contiguous(), idx, impl=ctx.impl), None
+        with op_scope("scatter_add.backward"):
+            return (g, None, gather_rows(g.contiguous(), idx, impl=ctx.impl),
+                    None)
 
 
 def furthest_point_sample(xyz: torch.Tensor, k: int,
@@ -80,8 +85,9 @@ def furthest_point_sample(xyz: torch.Tensor, k: int,
     ``k`` valid points the sampler re-selects duplicates. ``seed_idx`` ([B]
     int32) forces the first selection per cloud.
     """
-    return fps_kernel.furthest_point_sample(xyz.detach(), k, mask, seed_idx,
-                                            impl=impl)
+    with op_scope("fps"):
+        return fps_kernel.furthest_point_sample(xyz.detach(), k, mask,
+                                                seed_idx, impl=impl)
 
 
 def furthest_point_sample_and_gather(xyz: torch.Tensor, k: int,
@@ -92,14 +98,16 @@ def furthest_point_sample_and_gather(xyz: torch.Tensor, k: int,
 
     The kernel emits the coordinates as it selects them, so no separate
     gather runs; ``new_xyz`` is differentiable in ``xyz``."""
-    return _SampleAndGather.apply(xyz, k, mask, seed_idx, impl)
+    with op_scope("fps"):
+        return _SampleAndGather.apply(xyz, k, mask, seed_idx, impl)
 
 
 def gather_points(features: torch.Tensor, idx: torch.Tensor,
                   impl: str = "auto"):
     """[B,N,C] features, [B,K] int32 indices -> [B,K,C]; differentiable in
     ``features`` (deterministic scatter-add backward)."""
-    return _Gather.apply(features, idx.to(torch.int32), impl)
+    with op_scope("gather"):
+        return _Gather.apply(features, idx.to(torch.int32), impl)
 
 
 def scatter_add(target: torch.Tensor, idx: torch.Tensor,
@@ -107,7 +115,8 @@ def scatter_add(target: torch.Tensor, idx: torch.Tensor,
     """Deterministic scatter-add along the point axis: target [B,N,C] +=
     updates [B,K,C] at rows idx [B,K]; a new tensor, differentiable in
     ``target`` and ``updates``."""
-    return _ScatterAdd.apply(target, idx.to(torch.int32), updates, impl)
+    with op_scope("scatter_add"):
+        return _ScatterAdd.apply(target, idx.to(torch.int32), updates, impl)
 
 
 def random_sample(xyz: torch.Tensor, k: int, generator: torch.Generator,

@@ -20,6 +20,7 @@ from torch import nn
 from pytorch_points_tpu_torch.layers.blocks import remat_call
 from pytorch_points_tpu_torch.ops import chamfer_distance, earth_mover_distance
 from pytorch_points_tpu_torch.parallel.collectives import axis_group
+from pytorch_points_tpu_torch.utils.profiling import annotate
 
 
 def _mean_over(tensors, group, w: int) -> None:
@@ -70,19 +71,23 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                 dist.broadcast(t, src, group=group)
 
     def step(batch):
-        optimizer.zero_grad(set_to_none=True)
-        loss = remat_call(loss_fn, remat, model, batch, frozen=model)
-        loss.backward()
-        if group is not None:
-            with torch.no_grad():
-                _mean_over([p.grad for p in model.parameters()
-                            if p.grad is not None], group, w)
-                _mean_over([b for b in model.buffers()
-                            if b.is_floating_point()], group, w)
-                loss = loss.detach().clone()
-                _mean_over([loss], group, w)
-        optimizer.step()
-        return loss.detach()
+        with annotate("train.step"):
+            optimizer.zero_grad(set_to_none=True)
+            with annotate("train.forward"):
+                loss = remat_call(loss_fn, remat, model, batch, frozen=model)
+            with annotate("train.backward"):
+                loss.backward()
+            if group is not None:
+                with torch.no_grad():
+                    _mean_over([p.grad for p in model.parameters()
+                                if p.grad is not None], group, w)
+                    _mean_over([b for b in model.buffers()
+                                if b.is_floating_point()], group, w)
+                    loss = loss.detach().clone()
+                    _mean_over([loss], group, w)
+            with annotate("train.optimizer"):
+                optimizer.step()
+            return loss.detach()
 
     return step
 

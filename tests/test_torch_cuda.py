@@ -1614,3 +1614,45 @@ def test_gloo_collectives_on_cuda_tensors(dev, tmp_path):
         assert out["nn_equal"] == [True] * 4
         assert out["ring_equal"] == [True] * 4
         assert out["nn_k13_launches"] == 2
+
+
+def test_span_clock_is_the_trace_clock(dev):
+    """The span recorder stamps on the clock of the profiler's runtime
+    calls: inside one span, a kernel, 5 ms of host sleep, a second kernel,
+    in five rounds under one profiler. In the closest round the span opens
+    within 50 us before the first launch call (the rest is the op's own
+    dispatch); in every round the gap before the second kernel is labelled
+    by the span (the host was behind) and every device item falls under
+    the span."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_points_tpu_torch.utils import profiling
+
+    x = torch.zeros(1 << 16, device=dev)
+    x.add_(1)
+    x.mul_(2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profiling.recording() as rec:
+            for _ in range(5):
+                with profiling.op_scope("clock"):
+                    x.add_(1)
+                    time.sleep(0.005)
+                    x.mul_(2)
+                torch.cuda.synchronize()
+    evs = profiling.events(prof)
+    launches = sorted(e.start_ns for e in evs
+                      if not e.device and e.name.startswith("cudaLaunch"))
+    assert len(rec.spans) == 5 and len(launches) == 10
+    leads = [launch - span.start_ns
+             for launch, span in zip(launches[::2], rec.spans)]
+    assert all(lead >= 0 for lead in leads), leads
+    assert min(leads) < 50_000, leads
+    att = profiling.attribute(evs, rec.spans)
+    assert att.unattributed_s == 0
+    assert att.device_s("ppt.clock") == pytest.approx(att.busy_s)
+    long = [g for g in att.gaps if g[1] > 0.004]
+    assert len(long) == 5 and all(g[0] == "ppt.clock" for g in long), (
+        att.gaps)
