@@ -88,7 +88,14 @@ Phases, in order; any failure raises and exits non-zero:
    time and their device-only time (reads taken until two agree, every
    read printed) beside the check that K6 equals K5; each scatter case also its
    device items per call, its longest run and the time of ``index_add_``
-   under ``torch.use_deterministic_algorithms(True)``;
+   under ``torch.use_deterministic_algorithms(True)``; the LayerNorm+ReLU
+   pair (``csrc/layernorm.cu``, forward then backward) at the benchmark
+   cells' largest shapes, the forward bitwise and the backward within
+   float32 rounding of its plain version (tests/test_torch_layernorm_cuda.py
+   states the tolerances), with its
+   forward, backward and total time beside its bound (20 bytes an element,
+   8 a row), the plain version's time and torch's layer norm and ReLU with
+   their autograd backward as the library call;
 3. serve: a full-width PointCloudAutoencoder (random weights from a seeded
    torch.Generator) answers B=16 N=2048 requests, B=32 N=16384 requests and
    masked requests under inference_mode. Every output must be finite and
@@ -408,6 +415,9 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                 "pytorch_points_tpu/kernels/auction.py:45"),
     "augment": ("pytorch_points_tpu_torch/csrc/augment.cu",
                 "pytorch_points_tpu/kernels/auction.py:167"),
+    "layer_norm_relu": ("pytorch_points_tpu_torch/csrc/layernorm.cu",
+                        "none: XLA fuses the shared MLPs' LayerNorm and "
+                        "ReLU on the TPU"),
 }
 SERVE_KERNELS = ("fps", "ball_query", "gather", "knn")
 TRAIN_KERNELS = (*SERVE_KERNELS, "scatter", "nn_dense")
@@ -1799,6 +1809,94 @@ def check_emd_kernels(torch, dev, stats):
         stats)
 
 
+# (rows, C) of the benchmark cells' largest LayerNorms: SA1's 524,288
+# rows at 64 and 128 channels (and FP1 and the head at 16384 points), SA2's
+# 131,072 at 256, SA3's 4096 at 512 and 1024, the upsampler's 262,144 at 128
+LAYER_NORM_SHAPES = ((524288, 64), (524288, 128), (131072, 256),
+                     (4096, 512), (4096, 1024), (262144, 128))
+
+
+def layer_norm_cases(torch, dev, stats):
+    """The LayerNorm+ReLU pair, forward then backward, against its plain
+    version at LAYER_NORM_SHAPES: the forward's outputs (a, mean, rstd)
+    bitwise equal (the kernel takes a row's statistics in torch's order),
+    the backward's within 1e-4 of each tensor's largest plain value, on da
+    zeroed in the rows where the plain z lies within 1e-4 of 0 (the plain
+    backward recomputes z in two roundings, where torch's forward and the
+    kernel take one fma, so a rounding there may flip its ReLU mask); two
+    runs bitwise equal.
+    Then the kernels' times (CUDA events: forward, backward, both), the
+    bound (20 bytes an element, 8 a row), the plain pair's time, and
+    torch's layer norm and ReLU with their autograd backward (the port's
+    route before the kernels) as the library call."""
+    import torch.nn.functional as F
+
+    from pytorch_points_tpu_torch.kernels import layernorm
+
+    eps = 1e-6
+    for rows, c in LAYER_NORM_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+        x = torch.randn(rows, c, generator=gen, device=dev)
+        w = 1 + 0.5 * torch.randn(c, generator=gen, device=dev)
+        b = 0.5 * torch.randn(c, generator=gen, device=dev)
+        da = torch.randn(rows, c, generator=gen, device=dev)
+        z = torch.native_layer_norm(x, (c,), w, b, eps)[0]
+        near = ((z.abs() < 1e-4) & (z != 0)).any(1)
+        da[near] = 0.0
+
+        def fwd(impl):
+            return (layernorm.layer_norm_relu_cuda if impl == "cuda" else
+                    layernorm.layer_norm_relu_torch)(x, w, b, eps)
+
+        def both(impl):
+            a, mean, rstd = fwd(impl)
+            back = (layernorm.layer_norm_relu_backward_cuda if impl == "cuda"
+                    else layernorm.layer_norm_relu_backward_torch)
+            return (a, mean, rstd, *back(da, x, mean, rstd, w, b))
+
+        got, ref = both("cuda"), both("torch")
+        err = 0.0
+        for i, (g, r) in enumerate(zip(got, ref, strict=True)):
+            gap = (g - r).abs()
+            err = max(err, gap.max().item())
+            if i < 3 and not torch.equal(g, r):
+                fail(f"layer_norm_relu [{rows}x{c}]: forward output {i} "
+                     f"differs from plain (max abs err {err})")
+            if not (gap <= 1e-4 * r.abs().max()).all():
+                fail(f"layer_norm_relu [{rows}x{c}]: output {i} outside "
+                     f"float32 rounding of plain (max abs err {err})")
+        if not all(torch.equal(g, h) for g, h in zip(got, both("cuda"))):
+            fail(f"layer_norm_relu [{rows}x{c}]: two runs differ")
+        a, mean, rstd = fwd("cuda")
+        fwd_ms = cuda_ms(torch, lambda: fwd("cuda"))
+        bwd_ms = cuda_ms(torch, lambda: layernorm.layer_norm_relu_backward_cuda(
+            da, x, mean, rstd, w, b))
+        ms = cuda_ms(torch, lambda: both("cuda"))
+        plain_ms = cuda_ms(torch, lambda: both("torch"))
+        xg = x.clone().requires_grad_()
+        wg, bg = w.clone().requires_grad_(), b.clone().requires_grad_()
+
+        def library():
+            out = torch.relu(F.layer_norm(xg, (c,), wg, bg, eps))
+            return torch.autograd.grad(out, (xg, wg, bg), da)
+
+        lib_ms = cuda_ms(torch, library)
+        moved = 20 * rows * c + 16 * rows + 4 * 4 * c
+        b_ms, b_by = bound_ms(moved, 0)
+        print(f"{'layer_norm_relu':15s} {f'{rows}x{c}, forward + backward':52s}"
+              f" forward equal, backward within rounding, repeatable "
+              f"({near.sum().item()} rows with |z| < 1e-4 left out of the "
+              f"backward)  max_abs_err={err!r}  "
+              f"kernel {ms!r} ms (forward {fwd_ms!r}, backward {bwd_ms!r})  "
+              f"plain {plain_ms!r} ms  bound {b_ms!r} ms ({b_by}, {moved} "
+              f"bytes)  library {lib_ms!r} ms")
+        s = stats["layer_norm_relu"]
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        if "ms" not in s:
+            s.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=lib_ms)
+
+
 def phase_kernels(torch, dev):
     print("== phase 2: each kernel vs its plain PyTorch version "
           "(indices identical, values bitwise; the scatter bitwise against "
@@ -1816,6 +1914,7 @@ def phase_kernels(torch, dev):
         for case in cases:
             hold_against_plain(torch, case, stats)
         check_emd_kernels(torch, dev, stats)
+    layer_norm_cases(torch, dev, stats)
     check_k6_equals_k5(torch, dev)
     check_ring_equals_stream(torch, dev)
     return stats
@@ -2016,9 +2115,11 @@ def phase_train(torch, dev, wrappers):
     rng = np.random.default_rng(SEED + 2)
     batches = [{"points": torch.from_numpy(cloud(rng, b, n)).to(dev)}
                for _ in range(TRAIN_STEPS)]
-    runs = (("chamfer alone", dict(emd_weight=0), TRAIN_KERNELS),
+    runs = (("chamfer alone", dict(emd_weight=0),
+             (*TRAIN_KERNELS, "layer_norm_relu")),
             ("config 5, chamfer + 0.1 EMD (pop cap 384)",
-             dict(emd_kwargs=CONFIG5_EMD), (*TRAIN_KERNELS, *EMD_KERNELS)))
+             dict(emd_kwargs=CONFIG5_EMD),
+             (*TRAIN_KERNELS, *EMD_KERNELS, "layer_norm_relu")))
     launches, calls, medians = [], {}, {}
     for label, kw, required in runs:
         print(f"-- {label}")
@@ -4147,6 +4248,7 @@ def import_port():
         distance_tiles,
         fps,
         gather,
+        layernorm,
         nn_sorted,
         scatter,
         topk_scan,
@@ -4168,7 +4270,10 @@ def import_port():
                 "knn_ring_masked": topk_scan.knn_ring_masked_cuda,
                 "knn_ring_stats": topk_scan.knn_ring_stats_cuda,
                 "auction": auction.auction_cuda,
-                "augment": auction.augment_cuda}
+                "augment": auction.augment_cuda,
+                "layer_norm_relu": Launches(
+                    layernorm.layer_norm_relu_cuda,
+                    layernorm.layer_norm_relu_backward_cuda)}
     if wrappers.keys() != KERNELS.keys():
         raise RuntimeError("chip_smoke: KERNELS and the wrappers disagree")
     return _build, wrappers

@@ -87,6 +87,14 @@ _SIGNATURES = {
                     _P],
     # n (K12's block for n columns), iters, out (3 int64), stream
     "ppt_augment_pop_floor": [_I, _I, _P, _P],
+    # x, gamma, beta, rows, c, eps, out_a, out_mean, out_rstd, stream
+    "ppt_layer_norm_relu_fwd": [_P, _P, _P, _I, _I, _F, _P, _P, _P, _P],
+    # da, x, mean, rstd, gamma, beta, rows, c, scratch, scratch_blocks,
+    # out_dx, out_dgamma, out_dbeta, stream
+    "ppt_layer_norm_relu_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P,
+                                _P, _P, _P],
+    # -> the backward's scratch blocks an SM
+    "ppt_layer_norm_relu_scratch_blocks_per_sm": [],
 }
 
 

@@ -14,6 +14,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from pytorch_points_tpu_torch.kernels import dispatch
+from pytorch_points_tpu_torch.kernels.layernorm import layer_norm_relu
+
 # flax's LayerNorm default (nnx.LayerNorm epsilon); torch's is 1e-5.
 LAYER_NORM_EPS = 1e-6
 # flax's BatchNorm defaults as the reference builds it: epsilon 1e-5,
@@ -233,5 +236,25 @@ class SharedMLP(nn.Module):
             x = lin(x)
             if i == n - 1 and not self.act_last:
                 break
-            x = self.activation(nrm(x))
+            if self._fuses(nrm, x):
+                x = layer_norm_relu(x, nrm.weight, nrm.bias, nrm.eps)
+            else:
+                x = self.activation(nrm(x))
         return x
+
+    def _fuses(self, nrm: nn.Module, x: torch.Tensor) -> bool:
+        """Whether ``activation(nrm(x))`` runs as one LayerNorm+ReLU pair
+        on the kernels (``kernels/layernorm.py``): a float32 LayerNorm and
+        ReLU on a CUDA tensor, outside a torch trace. The bf16 policy,
+        BatchNorm, other activations, CPU tensors and traced programs take
+        the modules themselves."""
+        return (isinstance(nrm, LayerNorm) and nrm.compute_dtype is None
+                and self.activation in _RELUS and _on_card(x)
+                and x.dtype == torch.float32)
+
+
+_RELUS = (torch.relu, F.relu)
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda and not dispatch.traced("auto")
