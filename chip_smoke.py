@@ -72,7 +72,11 @@ Phases, in order; any failure raises and exits non-zero:
    launches); config 7's own shapes: K8 on its xyz graph (B=8 Nq=Ns=2048
    k=17), K3 and its K4 backward at its DenseEdgeConv groups (B=8
    K=32768, C = 24 and 96, at the xyz graph's indices), K9 at its
-   repulsion (B=8 N=8192 k=5). Kernel and plain times from CUDA events
+   repulsion (B=8 N=8192 k=5); the MSG part segmenter's grouping (the
+   benchmark's part-seg cell, B=32 N=2048 on its clouds): K1 at both
+   levels, K2 at its five (radius, nsample) scales to 128 neighbours, K3
+   and its K4 backward at each scale (SA1 C = 3, SA2 C = 320). Kernel and
+   plain times from CUDA events
    (a plain version that takes over a second: one call on the host
    clock); beside
    them each case's bound (the least time the card could take: bytes over
@@ -90,7 +94,7 @@ Phases, in order; any failure raises and exits non-zero:
    device items per call, its longest run and the time of ``index_add_``
    under ``torch.use_deterministic_algorithms(True)``; the LayerNorm+ReLU
    pair (``csrc/layernorm.cu``, forward then backward) at the benchmark
-   cells' largest shapes, the forward bitwise and the backward within
+   cells' largest shapes (C = 32, 96 and 196 among them), the forward bitwise and the backward within
    float32 rounding of its plain version (tests/test_torch_layernorm_cuda.py
    states the tolerances), with its
    forward, backward and total time beside its bound (20 bytes an element,
@@ -336,6 +340,12 @@ CONFIG7_C = (24, 96)  # config 7's feature-space graphs (edge1, edge2)
 CONFIG7 = dict(b=8, n=2048, k=17, ratio=4)
 REPULSION_K = 5  # RepulsionLoss's kNN: k = 4 and self
 SEMSEG = dict(b=16, n=2048, classes=13)  # config 8 (bench.py:363-384)
+# the MSG part segmenter's grouping (pn2_partseg_msg, B=32, N=2048): SA1
+# 512 centroids at three (radius, nsample), SA2 128 of them at two, on
+# SA1's 320 channels
+PARTSEG = dict(b=32, n=2048, npoint=(512, 128),
+               sa1=((0.1, 32), (0.2, 64), (0.4, 128)),
+               sa2=((0.4, 64), (0.8, 128)), sa2_c=320)
 CLASSIFIER_CLASSES = 40
 # config 10 (bench.py:412-466): dataset, batcher, model and timed epochs
 CONFIG10 = dict(count=32, batch=4, multiple=128, max_buckets=2, npoint1=96,
@@ -731,9 +741,10 @@ def scatter_case(torch, label, i, u, m):
         cpu=lambda: scatter.scatter_add(i.cpu(), u.cpu(), m))
 
 
-def bq_case(torch, name, label, xyz, cen, radius, mask=None):
+def bq_case(torch, name, label, xyz, cen, radius, mask=None,
+            nsample=NSAMPLE):
     """K2 (``name`` "ball_query") or its coordinate-emitting instance
-    ("ball_query_coords") at nsample NSAMPLE, with its work counter: the
+    ("ball_query_coords") at ``nsample``, with its work counter: the
     support points each centroid's scan tested, an output held equal to
     the plain version's like the others and printed beside the bound's
     pairs (each centroid to its own nsample-th hit)."""
@@ -748,12 +759,12 @@ def bq_case(torch, name, label, xyz, cen, radius, mask=None):
                                                                "torch")}
 
     def run(impl):
-        return (*fn(xyz, cen, radius, NSAMPLE, mask, counts=counts[impl],
+        return (*fn(xyz, cen, radius, nsample, mask, counts=counts[impl],
                     impl=impl), counts[impl])
 
     inputs = [xyz, cen] if mask is None else [xyz, cen, mask]
     return Case(name, label, run, inputs,
-                bq_ops(torch, xyz, cen, radius, NSAMPLE, mask),
+                bq_ops(torch, xyz, cen, radius, nsample, mask),
                 work=lambda got: got[-1].sum().item())
 
 
@@ -914,6 +925,53 @@ def kernel_cases(torch, rng, dev):
         "knn", f"config 7 xyz graph B{cb} Nq=Ns={cn} k={ck}",
         lambda impl: topk_scan.knn(ux, ux, ck, impl=impl), [ux],
         DIST_FLOPS * cb * cn * cn, issue=DIST_FLOPS * cb * cn * cn))
+    return cases
+
+
+def partseg_kernel_cases(torch, dev):
+    """K1, K2, K3 and K4 at the MSG part segmenter's shapes (PARTSEG) on
+    the benchmark cell's clouds: FPS at both levels, the ball query at each
+    of the five scales, and each scale's group gather of its level's
+    features (SA1 the normals, C = 3; SA2 SA1's 320 channels) with its
+    backward scatter."""
+    from portbench import gen
+    from pytorch_points_tpu_torch.kernels import ballquery, fps, gather
+
+    b, n = PARTSEG["b"], PARTSEG["n"]
+    p1, p2 = PARTSEG["npoint"]
+    xyz = gen.surface_clouds(b, n, dev, SEED + 50, 0)
+    cen1 = fps.furthest_point_sample(xyz, p1, emit_coords=True,
+                                     impl="torch")[1]
+    cen2 = fps.furthest_point_sample(cen1, p2, emit_coords=True,
+                                     impl="torch")[1]
+    rng = np.random.default_rng(SEED + 50)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    cases = [*fps_cases(torch, f"partseg sa1 B{b} N={n}", xyz, p1),
+             *fps_cases(torch, f"partseg sa2 B{b} N={p1}", cen1, p2)]
+    for level, sup, cen, c in (("sa1", xyz, cen1, 3),
+                               ("sa2", cen1, cen2, PARTSEG["sa2_c"])):
+        m = sup.shape[1]
+        f = t(rng.standard_normal((b, m, c)))
+        for radius, ns in PARTSEG[level]:
+            tag = (f"partseg {level} B{b} N={m} P={cen.shape[1]} "
+                   f"r={radius} nsample={ns}")
+            idx = ballquery.ball_query(sup, cen, radius, ns,
+                                       impl="torch")[0].reshape(b, -1)
+            k = idx.shape[1]
+            cases += [
+                bq_case(torch, "ball_query", tag, sup, cen, radius,
+                        nsample=ns),
+                Case("gather", f"{tag} group K={k} C={c}",
+                     lambda impl, f=f, i=idx: gather.gather_rows(
+                         f, i, impl=impl),
+                     [f, idx], library=gather_call(torch, f, idx)),
+                scatter_case(torch, f"{tag} group backward K={k} n={m} "
+                             f"C={c}", idx, t(rng.standard_normal((b, k, c))),
+                             m),
+            ]
     return cases
 
 
@@ -1811,9 +1869,12 @@ def check_emd_kernels(torch, dev, stats):
 
 # (rows, C) of the benchmark cells' largest LayerNorms: SA1's 524,288
 # rows at 64 and 128 channels (and FP1 and the head at 16384 points), SA2's
-# 131,072 at 256, SA3's 4096 at 512 and 1024, the upsampler's 262,144 at 128
+# 131,072 at 256, SA3's 4096 at 512 and 1024, the upsampler's 262,144 at
+# 128; the MSG part segmenter's widths no other cell has: SA1's first
+# scale at 32, its third at 96, SA2's second at 196
 LAYER_NORM_SHAPES = ((524288, 64), (524288, 128), (131072, 256),
-                     (4096, 512), (4096, 1024), (262144, 128))
+                     (4096, 512), (4096, 1024), (262144, 128),
+                     (524288, 32), (2097152, 96), (524288, 196))
 
 
 def layer_norm_cases(torch, dev, stats):
@@ -1911,6 +1972,7 @@ def phase_kernels(torch, dev):
         cases += band_dynamic_cases(torch, dev)
         cases += worklist_kernel_cases(torch, dev)
         cases += bf16_gather_cases(torch, dev)
+        cases += partseg_kernel_cases(torch, dev)
         for case in cases:
             hold_against_plain(torch, case, stats)
         check_emd_kernels(torch, dev, stats)

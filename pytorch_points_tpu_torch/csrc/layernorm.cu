@@ -15,13 +15,14 @@
 // x, write a; backward: read da and x, write dx) and 8 a row (mean and
 // rstd, written once and read once). The design moves nothing else:
 //  * a row lives in registers as float4s, its lanes on consecutive 16-byte
-//    vectors: C = 64 on 16 lanes (two rows a warp), C = 128 on 32 lanes,
-//    C = 256-1024 on 32 lanes with 2-8 float4 each; a thread holds its
-//    slice of gamma and beta (and, in the backward, of their gradients)
-//    in registers for all the rows it walks. At one float4 a lane a
-//    thread takes two rows a step, so each lane has two loads in flight;
-//    the grid strides over the rows, as many blocks as fill every SM once
-//    (the occupancy the compiler's registers allow);
+//    vectors: C = 32 on 8 lanes (four rows a warp), C = 64 on 16 lanes
+//    (two rows a warp), C = 96 on 8 lanes with 3 float4 each, C = 128 on
+//    32 lanes, C = 256-1024 on 32 lanes with 2-8 float4 each; a thread
+//    holds its slice of gamma and beta (and, in the backward, of their
+//    gradients) in registers for all the rows it walks. At one float4 a
+//    lane a thread takes two rows a step, so each lane has two loads in
+//    flight; the grid strides over the rows, as many blocks as fill every
+//    SM once (the occupancy the compiler's registers allow);
 //  * the forward takes a row's statistics from those registers in torch's
 //    own order (its Welford sums a thread, shuffle trees, then across its
 //    warps: torch_stats), so mean, rstd and a are bitwise torch's layer
@@ -31,6 +32,19 @@
 //    element's gradient; over a training step's 2.4e8 elements that moved
 //    the benchmark's first-gradient norms by 1.7e-5 against torch, past
 //    the 1e-5 its comparison allows;
+//  * any other C that is a multiple of 4, with 16-byte aligned rows (where
+//    torch takes its vectorized kernel too), takes the forward's wide
+//    instance: a warp a row, lane l holding float4s l, l + 32, ... (torch's
+//    thread l of each of its warps), the row's tail masked, the statistics
+//    in torch's order with its empty threads and warps combined as torch
+//    combines them; so it too is bitwise torch's (C = 196 in the MSG
+//    segmenter's SA2). To C = 512 the row stays in registers; past it the
+//    row is read again for the output;
+//  * every other row (C not a multiple of 4, or rows not 16-byte aligned,
+//    where torch takes its row-moments kernel) takes the generic forward:
+//    a warp a row read with scalar loads, its statistics in that kernel's
+//    order (a block of 512 threads, thread t summing elements t + 512 m,
+//    then its block reduce), so every forward is bitwise torch's;
 //  * the backward recomputes x-hat and z with the forward's own device
 //    functions, so its mask z > 0 is bitwise the forward's a > 0 (a NaN
 //    z passes the gradient, as torch's ReLU backward passes it), and
@@ -40,13 +54,10 @@
 //    kernel (..._dparams) sums over the blocks in a fixed order: no
 //    atomics, and the block count depends on the device alone, so two
 //    runs are bitwise equal. It matches torch's backward to rounding;
-//  * any other C (or rows not 16-byte aligned) takes the generic
-//    instance: a warp a row, the row read again for each pass (two-pass
-//    statistics, torch's to rounding), and the parameter gradients by a
-//    column kernel that recomputes z the same way. Nothing falls back to
-//    torch. Its statistics are torch's to rounding only, which the point
-//    above shows can move a training step's gradients past that limit;
-//    no model of the package reaches it at its default widths.
+//  * the backward at any C without a register instance (or on rows not
+//    16-byte aligned) takes the generic backward: a warp a row, the row
+//    read again for each pass, and the parameter gradients by a column
+//    kernel that recomputes z the same way. Nothing falls back to torch.
 // Every operation is rounded on its own (explicit __fsub_rn/__fmul_rn) but
 // the multiply-adds nvcc contracts in torch's kernel, which are __fmaf_rn.
 #include "common.cuh"
@@ -151,6 +162,16 @@ __device__ __forceinline__ Welford welford_combine(Welford own,
   return w;
 }
 
+// welford_combine where either side may be empty, as torch computes it:
+// no count, no mean and no sum of squares. Exact where the empty side is
+// `other` and own.count * (1 / own.count) rounds to 1, as it does at
+// every count these kernels meet; computed all the same.
+__device__ __forceinline__ Welford welford_combine_any(Welford own,
+                                                       Welford other) {
+  if (!(__fadd_rn(other.count, own.count) > 0.f)) return {0.f, 0.f, 0.f};
+  return welford_combine(own, other);
+}
+
 __device__ __forceinline__ Welford shfl_down(Welford w, int offset) {
   return {__shfl_down_sync(kFull, w.mean, offset),
           __shfl_down_sync(kFull, w.m2, offset),
@@ -163,33 +184,52 @@ __device__ __forceinline__ Welford shfl_down(Welford w, int offset) {
 // warps x 32 threads, thread (w, l) the float4s 32 w + l + 128 m in order,
 // each thread a Welford sum of its values, then each warp a shuffle-down
 // tree (offsets 16 ... 1), then warps 2 and 3 into 0 and 1, then 1 into
-// 0; var = m2 / C, rstd = rsqrtf(var + eps). Here state k of a lane is
-// torch's warp k's thread (floats4 j = k, k + 4, ...), and the trees run
-// over the group's lanes. At these C every combination with a thread or
-// warp that holds no value is exact (the counts are powers of two), so
-// the trees leave them out.
+// 0; var = m2 / C, rstd = rsqrtf(var + eps).
+//  * C >= 128 (LPR = 32): state k of a lane is torch's warp k's thread
+//    (floats4 j = k, k + 4, ...), and the trees run over the lanes;
+//  * C < 128 (torch's warp 0 alone holds the row, thread t = j LPR + sub):
+//    the tree's steps at offsets of LPR and more combine a lane's own
+//    states (step 16 / LPR first; at one float4 a lane, C = 32 and 64,
+//    they meet only empty threads), the smaller ones run over the lanes.
+// Every combination with a thread or warp that holds no value is exact at
+// these C (own.count * (1 / own.count) rounds to 1), so the trees leave
+// them out.
 template <int LPR, int VPT>
 __device__ __forceinline__ void torch_stats(const float (&v)[4 * VPT],
                                             int grp, float eps, float& mean,
                                             float& rstd) {
-  constexpr int W = VPT < 4 ? VPT : 4;  // torch's warps that hold values
+  constexpr bool kNarrow = VPT > 1 && VPT * LPR < 32;
+  constexpr int W = kNarrow ? 32 / LPR : (VPT < 4 ? VPT : 4);
   Welford w[W];
 #pragma unroll
   for (int k = 0; k < W; ++k) {
     w[k] = {0.f, 0.f, 0.f};
 #pragma unroll
-    for (int j = k; j < VPT; j += 4)
+    for (int j = k; j < VPT; j += (kNarrow ? W : 4))
 #pragma unroll
       for (int e = 0; e < 4; ++e) welford_add(w[k], v[4 * j + e]);
+    if constexpr (!kNarrow) {
+#pragma unroll
+      for (int o = LPR / 2; o > 0; o >>= 1)
+        w[k] = welford_combine(w[k], shfl_down(w[k], o));
+    }
+  }
+  if constexpr (kNarrow) {
+#pragma unroll
+    for (int step = W / 2; step > 0; step >>= 1)
+#pragma unroll
+      for (int k = 0; k < step; ++k)
+        if (k + step < VPT) w[k] = welford_combine(w[k], w[k + step]);
 #pragma unroll
     for (int o = LPR / 2; o > 0; o >>= 1)
-      w[k] = welford_combine(w[k], shfl_down(w[k], o));
+      w[0] = welford_combine(w[0], shfl_down(w[0], o));
+  } else {
+    if constexpr (W == 4) {
+      w[0] = welford_combine(w[0], w[2]);
+      w[1] = welford_combine(w[1], w[3]);
+    }
+    if constexpr (W >= 2) w[0] = welford_combine(w[0], w[1]);
   }
-  if constexpr (W == 4) {
-    w[0] = welford_combine(w[0], w[2]);
-    w[1] = welford_combine(w[1], w[3]);
-  }
-  if constexpr (W >= 2) w[0] = welford_combine(w[0], w[1]);
   mean = __shfl_sync(kFull, w[0].mean, grp * LPR);
   const float m2 = __shfl_sync(kFull, w[0].m2, grp * LPR);
   rstd = rsqrtf(__fadd_rn(__fdiv_rn(m2, static_cast<float>(4 * VPT * LPR)),
@@ -405,7 +445,40 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Generic forward: a warp a row, any C, the row read once a pass.
+// torch's other Welford state and its two updates, operation for operation
+// as its row-moments kernel (RowwiseMomentsCUDAKernel, WelfordOps) computes
+// them: a division in the online update, an empty side passed through in
+// the combination. The count is kept as a float, exact to 2^24.
+struct Moments {
+  float mean, m2, n;
+};
+
+__device__ __forceinline__ Moments moments_add(Moments s, float v) {
+  const float n = __fadd_rn(s.n, 1.f);
+  const float delta = __fsub_rn(v, s.mean);
+  const float mean = __fadd_rn(s.mean, __fdiv_rn(delta, n));
+  return {mean, __fmaf_rn(delta, __fsub_rn(v, mean), s.m2), n};
+}
+
+__device__ __forceinline__ Moments moments_combine(Moments a, Moments b) {
+  if (a.n == 0.f) return b;
+  if (b.n == 0.f) return a;
+  const float delta = __fsub_rn(b.mean, a.mean);
+  const float n = __fadd_rn(a.n, b.n);
+  const float nb_over_n = __fdiv_rn(b.n, n);
+  return {__fmaf_rn(delta, nb_over_n, a.mean),
+          __fmaf_rn(__fmul_rn(__fmul_rn(delta, delta), a.n), nb_over_n,
+                    __fadd_rn(a.m2, b.m2)),
+          n};
+}
+
+// Generic forward: a warp a row, any C, scalar loads, the row read again
+// for the output. torch's row-moments kernel gives a row a block of 16
+// warps, thread (w, l) the elements 32 w + l + 512 m in order, then a
+// shuffle-down tree in each warp (offsets 16 ... 1) and the same tree over
+// the 16 warps' states in warp 0 (its lanes 16-31 empty); var = m2 / C,
+// rstd = rsqrtf(var + eps). Lane l's state w here is torch's thread
+// (w, l), so the trees are torch's.
 __global__ void __launch_bounds__(kThreads)
     layer_norm_relu_fwd_generic_kernel(const float* __restrict__ x,
                                        const float* __restrict__ gamma,
@@ -414,23 +487,39 @@ __global__ void __launch_bounds__(kThreads)
                                        float* __restrict__ a,
                                        float* __restrict__ mean_out,
                                        float* __restrict__ rstd_out) {
+  constexpr int W = 16;  // torch's warps a row
   const int lane = threadIdx.x & 31;
-  const float c_f = static_cast<float>(c);
   const long long warps = static_cast<long long>(gridDim.x) * kWarps;
   for (long long row = static_cast<long long>(blockIdx.x) * kWarps +
                        threadIdx.x / 32;
        row < rows; row += warps) {
     const float* xr = x + row * c;
-    float s = 0.f;
-    for (int k = lane; k < c; k += 32) s = __fadd_rn(s, xr[k]);
-    const float mean = __fdiv_rn(row_sum<32>(s), c_f);
-    float s2 = 0.f;
-    for (int k = lane; k < c; k += 32) {
-      const float d = __fsub_rn(xr[k], mean);
-      s2 = __fmaf_rn(d, d, s2);
+    Moments s[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) s[w] = {0.f, 0.f, 0.f};
+    for (int k0 = 0; k0 < c; k0 += 32 * W) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const int k = k0 + 32 * w + lane;
+        if (k < c) s[w] = moments_add(s[w], xr[k]);
+      }
     }
-    const float var = __fdiv_rn(row_sum<32>(s2), c_f);
-    const float rstd = rsqrtf(__fadd_rn(var, eps));
+#pragma unroll
+    for (int w = 0; w < W; ++w)
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        s[w] = moments_combine(
+            s[w], {__shfl_down_sync(kFull, s[w].mean, o),
+                   __shfl_down_sync(kFull, s[w].m2, o),
+                   __shfl_down_sync(kFull, s[w].n, o)});
+#pragma unroll
+    for (int step = W / 2; step > 0; step >>= 1)
+#pragma unroll
+      for (int w = 0; w < step; ++w) s[w] = moments_combine(s[w], s[w + step]);
+    const float mean = __shfl_sync(kFull, s[0].mean, 0);
+    const float m2 = __shfl_sync(kFull, s[0].m2, 0);
+    const float n = __shfl_sync(kFull, s[0].n, 0);
+    const float rstd = rsqrtf(__fadd_rn(__fdiv_rn(m2, n), eps));
     for (int k = lane; k < c; k += 32)
       a[row * c + k] =
           relu(pre_act(x_hat(xr[k], mean, rstd), gamma[k], beta[k]));
@@ -516,6 +605,117 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Wide forward: a warp a row of nv float4s (C = 4 nv), lane l taking
+// float4s l + 32 j in ascending j, the row's tail masked. J > 0 keeps the
+// row (nv <= 32 J <= 128) and gamma and beta in registers; J = 0 takes any
+// nv and reads the row again for the output. Float4 l + 32 j goes into the
+// lane's state j % 4, torch's thread l of its warp j % 4 (torch's thread
+// (w, l) takes float4s 32 w + l + 128 m; torch_stats above), so the warp
+// trees, over all 32 lanes, and the combinations across torch's warps are
+// torch's, its empty threads and warps combined as it combines them.
+template <int J>
+__global__ void __launch_bounds__(kThreads)
+    layer_norm_relu_fwd_wide_kernel(const float4* __restrict__ x,
+                                    const float4* __restrict__ gamma,
+                                    const float4* __restrict__ beta,
+                                    int rows, int nv, float eps,
+                                    float4* __restrict__ a,
+                                    float* __restrict__ mean_out,
+                                    float* __restrict__ rstd_out) {
+  constexpr int JR = J > 0 ? J : 1;  // float4s a lane in registers
+  const int lane = threadIdx.x & 31;
+  float g[4 * JR], b[4 * JR];
+  if constexpr (J > 0) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int q = lane + 32 * j;
+      if (q < nv) {
+        unpack(gamma[q], g + 4 * j);
+        unpack(beta[q], b + 4 * j);
+      } else {
+        g[4 * j] = g[4 * j + 1] = g[4 * j + 2] = g[4 * j + 3] = 0.f;
+        b[4 * j] = b[4 * j + 1] = b[4 * j + 2] = b[4 * j + 3] = 0.f;
+      }
+    }
+  }
+  const float c_f = static_cast<float>(4 * nv);
+  const long long warps = static_cast<long long>(gridDim.x) * kWarps;
+  for (long long row = static_cast<long long>(blockIdx.x) * kWarps +
+                       threadIdx.x / 32;
+       row < rows; row += warps) {
+    float v[4 * JR];
+    Welford w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) w[j] = {0.f, 0.f, 0.f};
+    if constexpr (J > 0) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int q = lane + 32 * j;
+        if (q < nv) {
+          unpack(x[row * nv + q], v + 4 * j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) welford_add(w[j], v[4 * j + e]);
+        } else {
+          v[4 * j] = v[4 * j + 1] = v[4 * j + 2] = v[4 * j + 3] = 0.f;
+        }
+      }
+    } else {
+      for (int j0 = 0; 32 * j0 < nv; j0 += 4) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int q = lane + 32 * (j0 + j);
+          if (q < nv) {
+            unpack(x[row * nv + q], v);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) welford_add(w[j], v[e]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < (J > 0 && J < 4 ? J : 4); ++j)  // the others empty
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        w[j] = welford_combine_any(w[j], shfl_down(w[j], o));
+    w[0] = welford_combine_any(w[0], w[2]);
+    w[1] = welford_combine_any(w[1], w[3]);
+    w[0] = welford_combine_any(w[0], w[1]);
+    const float mean = __shfl_sync(kFull, w[0].mean, 0);
+    const float m2 = __shfl_sync(kFull, w[0].m2, 0);
+    const float rstd = rsqrtf(__fadd_rn(__fdiv_rn(m2, c_f), eps));
+    if constexpr (J > 0) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int q = lane + 32 * j;
+        if (q < nv) {
+          float o[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int k = 4 * j + e;
+            o[e] = relu(pre_act(x_hat(v[k], mean, rstd), g[k], b[k]));
+          }
+          a[row * nv + q] = pack(o);
+        }
+      }
+    } else {
+      for (int q = lane; q < nv; q += 32) {
+        float o[4];
+        unpack(x[row * nv + q], v);
+        unpack(gamma[q], g);
+        unpack(beta[q], b);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[e] = relu(pre_act(x_hat(v[e], mean, rstd), g[e], b[e]));
+        a[row * nv + q] = pack(o);
+      }
+    }
+    if (lane == 0) {
+      mean_out[row] = mean;
+      rstd_out[row] = rstd;
+    }
+  }
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -569,6 +769,47 @@ cudaError_t backward(const float* da, const float* x, const float* mean,
   layer_norm_relu_dparams_kernel<<<(2 * C + 31) / 32, kThreads, 0, stream>>>(
       scratch, blocks, C, dgamma, dbeta);
   return cudaGetLastError();
+}
+
+template <int J>
+cudaError_t forward_wide_j(const float* x, const float* gamma,
+                           const float* beta, int rows, int nv, float eps,
+                           float* a, float* mean, float* rstd,
+                           cudaStream_t stream) {
+  static int per_sm = 0;
+  auto kernel = layer_norm_relu_fwd_wide_kernel<J>;
+  const int resident = resident_blocks(kernel, &per_sm);
+  if (resident <= 0) return cudaErrorInvalidValue;
+  kernel<<<grid_for(rows, kWarps, resident), kThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(x),
+      reinterpret_cast<const float4*>(gamma),
+      reinterpret_cast<const float4*>(beta), rows, nv, eps,
+      reinterpret_cast<float4*>(a), mean, rstd);
+  return cudaGetLastError();
+}
+
+// nv float4s a row, nv >= 1.
+cudaError_t forward_wide(const float* x, const float* gamma,
+                         const float* beta, int rows, int nv, float eps,
+                         float* a, float* mean, float* rstd,
+                         cudaStream_t stream) {
+  switch ((nv + 31) / 32) {
+    case 1:
+      return forward_wide_j<1>(x, gamma, beta, rows, nv, eps, a, mean, rstd,
+                               stream);
+    case 2:
+      return forward_wide_j<2>(x, gamma, beta, rows, nv, eps, a, mean, rstd,
+                               stream);
+    case 3:
+      return forward_wide_j<3>(x, gamma, beta, rows, nv, eps, a, mean, rstd,
+                               stream);
+    case 4:
+      return forward_wide_j<4>(x, gamma, beta, rows, nv, eps, a, mean, rstd,
+                               stream);
+    default:
+      return forward_wide_j<0>(x, gamma, beta, rows, nv, eps, a, mean, rstd,
+                               stream);
+  }
 }
 
 cudaError_t forward_generic(const float* x, const float* gamma,
@@ -636,9 +877,15 @@ extern "C" int ppt_layer_norm_relu_fwd(const float* x, const float* gamma,
   if (rows == 0) return cudaSuccess;
   if (aligned16(x, gamma, beta, a)) {
     switch (c) {
+      case 32:
+        return forward<8, 1, 2>(x, gamma, beta, rows, eps, a, mean, rstd,
+                                 stream);
       case 64:
         return forward<16, 1, 2>(x, gamma, beta, rows, eps, a, mean, rstd,
                                   stream);
+      case 96:
+        return forward<8, 3, 1>(x, gamma, beta, rows, eps, a, mean, rstd,
+                                 stream);
       case 128:
         return forward<32, 1, 2>(x, gamma, beta, rows, eps, a, mean, rstd,
                                   stream);
@@ -653,6 +900,9 @@ extern "C" int ppt_layer_norm_relu_fwd(const float* x, const float* gamma,
                                   stream);
       default: break;
     }
+    if (c % 4 == 0)
+      return forward_wide(x, gamma, beta, rows, c / 4, eps, a, mean, rstd,
+                          stream);
   }
   return forward_generic(x, gamma, beta, rows, c, eps, a, mean, rstd, stream);
 }
@@ -676,9 +926,15 @@ extern "C" int ppt_layer_norm_relu_bwd(const float* da, const float* x,
   }
   if (aligned16(da, x, gamma, beta, dx)) {
     switch (c) {
+      case 32:
+        return backward<8, 1, 2>(da, x, mean, rstd, gamma, beta, rows, scratch,
+                                  scratch_blocks, dx, dgamma, dbeta, stream);
       case 64:
         return backward<16, 1, 2>(da, x, mean, rstd, gamma, beta, rows, scratch,
                                    scratch_blocks, dx, dgamma, dbeta, stream);
+      case 96:
+        return backward<8, 3, 1>(da, x, mean, rstd, gamma, beta, rows, scratch,
+                                  scratch_blocks, dx, dgamma, dbeta, stream);
       case 128:
         return backward<32, 1, 2>(da, x, mean, rstd, gamma, beta, rows, scratch,
                                    scratch_blocks, dx, dgamma, dbeta, stream);

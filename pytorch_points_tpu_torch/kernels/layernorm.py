@@ -11,11 +11,14 @@ what bounds them on the card.
 
 The plain versions compute the same function: the forward is torch's own
 layer norm (``torch.native_layer_norm``, which also gives the statistics)
-and ReLU, the backward the kernel's formula written out. At C = 64, 128,
-256, 512 and 1024 the forward kernel is bitwise the plain forward on the
-card (it sums a row's statistics in torch's order); the generic instance
-(any other C) and the backward match to float32 rounding. The backward's
-mask is the forward's ``a > 0`` bitwise, and two runs are bitwise equal.
+and ReLU, the backward the kernel's formula written out. The forward
+kernel is bitwise the plain forward on the card at every C: it sums a
+row's statistics in the order of the torch kernel that takes the row (on
+16-byte aligned rows of C a multiple of 4, torch's vectorized kernel:
+register instances at C = 32, 64, 96, 128, 256, 512 and 1024, a warp a row
+at the others; on any other row, torch's row-moments kernel). The backward
+matches to float32 rounding; its mask is the forward's ``a > 0`` bitwise,
+and two runs are bitwise equal.
 """
 
 from __future__ import annotations
@@ -69,8 +72,8 @@ def _scratch_blocks(device_index: int) -> int:
 def layer_norm_relu_cuda(x: torch.Tensor, weight: torch.Tensor,
                          bias: torch.Tensor, eps: float):
     """Launch the forward kernel: same contract as
-    :func:`layer_norm_relu_torch` for float32 [R,C] rows (bitwise on the
-    card at C = 64-1024 in powers of two, else to rounding)."""
+    :func:`layer_norm_relu_torch` for float32 [R,C] rows, bitwise on the
+    card."""
     rows, c = x.shape
     _build.require(x, "layer_norm_relu x", torch.float32, (rows, c))
     _build.require(weight, "layer_norm_relu weight", torch.float32, (c,))

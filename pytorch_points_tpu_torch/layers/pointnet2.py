@@ -1,7 +1,9 @@
 """PointNet++ set-abstraction / feature-propagation modules (counterpart of
 the JAX ``layers/pointnet2.py``).
 
-SA = sample_and_group -> shared MLP -> max-pool over neighbours;
+SA = sample_and_group -> shared MLP -> max-pool over neighbours; the
+multi-scale SA runs one FPS, then for each radius the shared group step,
+its own MLP and max-pool, and concatenates the scales' features;
 FP = three_nn -> inverse-distance three_interpolate -> concat skip ->
 shared MLP.
 """
@@ -15,7 +17,9 @@ from torch import nn
 
 from pytorch_points_tpu_torch.layers.blocks import SharedMLP
 from pytorch_points_tpu_torch.ops import (
+    furthest_point_sample_and_gather,
     group_all,
+    group_around,
     interpolation_weights,
     sample_and_group,
     sample_and_group_sorted,
@@ -85,6 +89,52 @@ class PointNetSAModule(nn.Module):
                 )
             h = self.mlp(grouped)  # [B, P, S, C']
             return new_xyz, h.amax(dim=2)
+
+
+class PointNetSAModuleMSG(nn.Module):
+    """Multi-scale-grouping set abstraction (Qi et al. 2017, section 3.3):
+    one FPS, then for each (radius, nsample, mlp) a ball query around the
+    same centroids, the grouped centred coordinates before the grouped
+    features, a shared MLP and a max over the group; the scales' outputs
+    concatenated in the order given: [B,N,3], [B,N,C] -> (new_xyz
+    [B,npoint,3], [B,npoint,sum of the MLPs' last widths]).
+
+    Args:
+      in_channels: feature channels of the input (0 if xyz only).
+      mlps: one list of output widths a scale.
+      npoint: centroids to sample.
+      radii, nsamples: each scale's ball radius and group size.
+      norm, dtype: the shared MLPs' (:class:`SharedMLP`).
+    """
+
+    def __init__(self, in_channels: int, mlps: Sequence[Sequence[int]], *,
+                 npoint: int, radii: Sequence[float],
+                 nsamples: Sequence[int], norm: str | None = "layer",
+                 dtype: torch.dtype | None = None, device="cuda",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if not len(mlps) == len(radii) == len(nsamples):
+            raise ValueError("mlps, radii and nsamples need one entry a "
+                             "scale")
+        self.npoint = npoint
+        self.radii = tuple(radii)
+        self.nsamples = tuple(nsamples)
+        self.mlps = nn.ModuleList(
+            SharedMLP([in_channels + 3, *mlp], norm=norm, dtype=dtype,
+                      device=device, generator=generator) for mlp in mlps)
+
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor | None = None,
+                impl: str = "auto"):
+        with annotate("layers.sa"):
+            new_xyz, _ = furthest_point_sample_and_gather(xyz, self.npoint,
+                                                          impl=impl)
+            pooled = []
+            for radius, nsample, mlp in zip(self.radii, self.nsamples,
+                                            self.mlps):
+                grouped, _, _ = group_around(xyz, features, new_xyz, nsample,
+                                             radius, impl=impl)
+                pooled.append(mlp(grouped).amax(dim=2))
+            return new_xyz, torch.cat(pooled, dim=-1)
 
 
 class PointNetFPModule(nn.Module):

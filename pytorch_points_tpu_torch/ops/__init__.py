@@ -8,6 +8,7 @@ from pytorch_points_tpu_torch.ops.grouping import (
     ball_query,
     duplicate_shadow_mask,
     group_all,
+    group_around,
     group_knn,
     group_points,
     knn,
@@ -46,6 +47,7 @@ __all__ = [
     "furthest_point_sample_and_gather",
     "gather_points",
     "group_all",
+    "group_around",
     "group_knn",
     "group_points",
     "interpolation_weights",

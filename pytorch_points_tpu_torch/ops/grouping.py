@@ -12,6 +12,9 @@ Reference semantics:
   * _bq_group_centered: the fused SA front half, a ball query that emits
     the centred grouped coordinates in its scan; backward as the
     reference's ``custom_vjp``.
+  * group_around: the SA front half's group step around given centroids
+    (ball query or kNN, group, centre, concatenate), shared by
+    sample_and_group, sample_and_group_sorted and the multi-scale SA layer.
   * sample_and_group_sorted: the Morton-consistent SA front half (FPS on
     the sorted cloud, centroids in Morton order, the ball query on the
     original order).
@@ -239,17 +242,20 @@ def _per_radius(centered: torch.Tensor, radius: float) -> torch.Tensor:
     return centered * float(np.float32(1.0) / np.float32(radius))
 
 
-def sample_and_group(xyz: torch.Tensor, features: torch.Tensor | None,
-                     npoint: int, nsample: int, radius: float | None = None,
-                     *, use_xyz: bool = True, normalize_radius: bool = False,
-                     mask: torch.Tensor | None = None, impl: str = "auto"):
-    """FPS -> (ball query | kNN) -> group -> centre (+ optional normalise).
+def group_around(xyz: torch.Tensor, features: torch.Tensor | None,
+                 new_xyz: torch.Tensor, nsample: int,
+                 radius: float | None = None, *, use_xyz: bool = True,
+                 normalize_radius: bool = False,
+                 mask: torch.Tensor | None = None, impl: str = "auto"):
+    """The SA front half's group step around given centroids: (ball query
+    | kNN) -> group -> centre (+ optional normalise) -> concatenate the
+    grouped features after the centred coordinates. The one grouping that
+    single-scale (:func:`sample_and_group`) and multi-scale SA layers
+    share: a multi-scale layer calls it once a radius around one FPS.
 
-    Returns (new_xyz [B,npoint,3], new_features [B,npoint,nsample,C'],
-    idx [B,npoint,nsample], grouped_xyz [B,npoint,nsample,3]).
+    Returns (new_features [B,P,nsample,C'], idx [B,P,nsample],
+    grouped_xyz [B,P,nsample,3]).
     """
-    new_xyz, _ = furthest_point_sample_and_gather(xyz, npoint, mask=mask,
-                                                  impl=impl)
     if radius is not None:
         idx, _ = ball_query(xyz, new_xyz, radius, nsample, mask=mask,
                             impl=impl)
@@ -265,6 +271,23 @@ def sample_and_group(xyz: torch.Tensor, features: torch.Tensor | None,
         new_features = group_points(features, idx, impl)
         if use_xyz:
             new_features = torch.cat([centered, new_features], dim=-1)
+    return new_features, idx, grouped_xyz
+
+
+def sample_and_group(xyz: torch.Tensor, features: torch.Tensor | None,
+                     npoint: int, nsample: int, radius: float | None = None,
+                     *, use_xyz: bool = True, normalize_radius: bool = False,
+                     mask: torch.Tensor | None = None, impl: str = "auto"):
+    """FPS, then :func:`group_around` the sampled centroids.
+
+    Returns (new_xyz [B,npoint,3], new_features [B,npoint,nsample,C'],
+    idx [B,npoint,nsample], grouped_xyz [B,npoint,nsample,3]).
+    """
+    new_xyz, _ = furthest_point_sample_and_gather(xyz, npoint, mask=mask,
+                                                  impl=impl)
+    new_features, idx, grouped_xyz = group_around(
+        xyz, features, new_xyz, nsample, radius, use_xyz=use_xyz,
+        normalize_radius=normalize_radius, mask=mask, impl=impl)
     return new_xyz, new_features, idx, grouped_xyz
 
 
@@ -305,17 +328,9 @@ def sample_and_group_sorted(xyz: torch.Tensor,
     cen, _ = furthest_point_sample_and_gather(
         xs, npoint, impl=impl, seed_idx=inv[:, 0].to(torch.int32))
     cs, _ = nn_sorted.sort_by_morton(cen)
-    idx_orig, _ = ball_query(xyz, cs, radius, nsample, impl=impl)
-    grouped_xyz = group_points(xyz, idx_orig, impl)
-    centered = grouped_xyz - cs[:, :, None, :]
-    if normalize_radius:
-        centered = _per_radius(centered, radius)
-    if features is None:
-        new_features = centered
-    else:
-        new_features = group_points(features, idx_orig, impl)
-        if use_xyz:
-            new_features = torch.cat([centered, new_features], dim=-1)
+    new_features, idx_orig, grouped_xyz = group_around(
+        xyz, features, cs, nsample, radius, use_xyz=use_xyz,
+        normalize_radius=normalize_radius, impl=impl)
     b = xyz.shape[0]
     idx = inv.gather(1, idx_orig.reshape(b, -1).long()).reshape(
         idx_orig.shape).to(torch.int32)

@@ -7,16 +7,19 @@ card:
 
     python -m pytest --noconftest -q tests/test_torch_layernorm_cuda.py
 
-The shapes are every (rows, C) the benchmark's three cells normalise, then
-ragged row counts and channel counts that take the generic instance.
+The shapes are every (rows, C) the benchmark's first three cells
+normalise, the MSG part segmenter's widths (C = 32, 96 and 196 among them),
+then ragged row counts and channel counts that take the wide or the generic
+instance.
 
-At C = 64, 128, 256, 512 and 1024 (the fast instances) the forward is
-bitwise the plain version on the card, torch's own layer norm: the kernel
-takes a row's statistics in torch's Welford order. The generic instance
-and the backward sum in their own orders. So beside that, the reference is
+At every shape the forward is bitwise the plain version on the card,
+torch's own layer norm: the kernel takes a row's statistics in the Welford
+order of the torch kernel that takes the row (its vectorized kernel on
+aligned rows of C a multiple of 4, else its row-moments kernel). The
+backward sums in its own order. So beside that, the reference is
 the plain version in float64 on the same float32 inputs, and the kernels
 are held to float32 rounding of it, each tolerance from the sums it rounds
-(u = 2^-24; C <= 2048, so a sum's tree is at most 11 levels deep):
+(u = 2^-24; C <= 4100, so a sum's tree is at most 13 levels deep):
 
 * mean within 4e-6 of the row's largest |x| (64 u against about 11 u);
 * rstd within 1e-5 relative (a variance within a few u, rsqrtf 2 ulp);
@@ -56,11 +59,18 @@ CELL_SHAPES = [(524288, 64), (524288, 128), (131072, 128), (131072, 256),
                (4096, 256), (4096, 512), (4096, 1024), (16384, 256),
                (16384, 128), (65536, 128), (65536, 64), (262144, 128),
                (262144, 64)]
-# ragged row counts, and C the fast instances do not take (generic)
+# the MSG part segmenter's (pn2_partseg_msg at B=32, N=2048) that the shapes
+# above leave out: SA1's three scales (32, 64 and 128 neighbours of 512
+# centroids), SA2's second (128 of 128)
+MSG_SHAPES = [(524288, 32), (1048576, 64), (2097152, 64), (2097152, 96),
+              (2097152, 128), (524288, 196), (524288, 256)]
+# ragged row counts, and C the register instances do not take: the wide
+# forward (a multiple of 4, held in registers to 512, read twice past it)
+# and the generic one (any other C)
 RAGGED_SHAPES = [(1, 64), (3, 128), (1001, 64), (777, 256), (129, 1024),
-                 (33, 512), (5, 96), (1000, 100), (37, 3), (300, 2048)]
+                 (33, 512), (5, 96), (1000, 100), (37, 3), (300, 2048),
+                 (1000, 150), (513, 6), (200, 516), (100, 4100), (50, 1537)]
 NEAR = 1e-4
-FAST_C = (64, 128, 256, 512, 1024)
 
 
 @pytest.fixture
@@ -98,7 +108,7 @@ def _forward64(x, w, b):
     return t * w + b, a, mean, rstd, t
 
 
-@pytest.mark.parametrize("rows,c", CELL_SHAPES + RAGGED_SHAPES)
+@pytest.mark.parametrize("rows,c", CELL_SHAPES + MSG_SHAPES + RAGGED_SHAPES)
 def test_layer_norm_relu_matches_plain(dev, rows, c):
     x, w, b, da = _inputs(dev, rows, c)
     z, a64, mu64, rs64, t64 = _forward64(x, w, b)
@@ -132,21 +142,23 @@ def test_layer_norm_relu_matches_plain(dev, rows, c):
     # the rows left out of the backward's comparison are few (at C = 2048
     # about 1 in 7 holds a z within 1e-4 of 0)
     assert near_rows.sum().item() <= 1 + 0.3 * rows
-    if c in FAST_C:  # the fast instances give torch's forward bitwise
-        for got, ref in zip((a, mean, rstd),
-                            layernorm.layer_norm_relu_torch(x, w, b, EPS),
-                            strict=True):
-            assert torch.equal(got, ref)
+    for got, ref in zip((a, mean, rstd),  # torch's forward bitwise
+                        layernorm.layer_norm_relu_torch(x, w, b, EPS),
+                        strict=True):
+        assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("rows,c", [(524288, 64), (131072, 256),
-                                    (4096, 1024), (1001, 64), (1000, 100)])
+                                    (4096, 1024), (1001, 64), (1000, 100),
+                                    (524288, 32), (524288, 96),
+                                    (524288, 196)])
 def test_backward_mask_is_the_forwards_bitwise(dev, rows, c):
     """dbeta = sum over rows of da where a > 0: with integer da (1, then
-    random 1..16) every partial sum is an integer below 2^24, exact in
-    float32 in any order, so dbeta equals the count taken from the forward's
-    a only if the backward's mask is the forward's element by element (a
-    differing element moves its channel's sum by its da)."""
+    random 1..16) and at most 2^20 rows every partial sum is an integer of
+    at most 2^24, exact in float32 in any order, so dbeta equals the count
+    taken from the forward's a only if the backward's mask is the forward's
+    element by element (a differing element moves its channel's sum by its
+    da)."""
     x, w, b, _ = _inputs(dev, rows, c, seed=1)
     a, mean, rstd = layernorm.layer_norm_relu_cuda(x, w, b, EPS)
     g = torch.Generator(device=dev).manual_seed(2)
@@ -158,7 +170,8 @@ def test_backward_mask_is_the_forwards_bitwise(dev, rows, c):
         assert torch.equal(db.double(), want)
 
 
-@pytest.mark.parametrize("rows,c", [(1001, 64), (777, 256), (5, 96)])
+@pytest.mark.parametrize("rows,c", [(1001, 64), (777, 256), (5, 96),
+                                    (1001, 32), (333, 196)])
 def test_nan_row_propagates_as_torch(dev, rows, c):
     """A NaN in a row: its a and dx are NaN, as torch's layer norm and ReLU
     give; its da still enters dbeta (torch's ReLU backward passes a NaN
@@ -180,7 +193,8 @@ def test_nan_row_propagates_as_torch(dev, rows, c):
 
 
 @pytest.mark.parametrize("rows,c", [(524288, 64), (131072, 256),
-                                    (4096, 1024), (1000, 100)])
+                                    (4096, 1024), (1000, 100), (524288, 32),
+                                    (2097152, 96), (524288, 196)])
 def test_two_runs_bitwise_equal(dev, rows, c):
     x, w, b, da = _inputs(dev, rows, c, seed=4)
 
@@ -193,16 +207,21 @@ def test_two_runs_bitwise_equal(dev, rows, c):
         assert torch.equal(first, second)
 
 
-def test_unaligned_rows_take_the_generic_instance(dev):
+@pytest.mark.parametrize("c", [64, 196])
+def test_unaligned_rows_take_the_generic_instance(dev, c):
     """Rows that start off a 16-byte boundary go to the generic instance,
-    which gives the fast one's result to rounding."""
-    x, w, b, da = _inputs(dev, 1001, 64, seed=5)
+    which is bitwise torch's layer norm on those rows (its row-moments
+    kernel takes them too) and gives the fast instance's result to
+    rounding."""
+    x, w, b, da = _inputs(dev, 1001, c, seed=5)
     buf = torch.empty(x.numel() + 1, device=dev)
     xs = buf[1:].view(x.shape)
     xs.copy_(x)
     fast = layernorm.layer_norm_relu_cuda(x, w, b, EPS)
     slow = layernorm.layer_norm_relu_cuda(xs, w, b, EPS)
-    for f, s in zip(fast, slow, strict=True):
+    plain = layernorm.layer_norm_relu_torch(xs, w, b, EPS)
+    for f, s, p in zip(fast, slow, plain, strict=True):
+        assert torch.equal(s, p)
         assert torch.allclose(f, s, rtol=1e-5, atol=1e-5)
 
 
